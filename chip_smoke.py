@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and drives
-the serving path at full width (mult_chan 32, depth 4, 5^3 kernels):
+Builds the port's CUDA kernels from the sources in this checkout and drives
+the serving and training paths at full width (mult_chan 32, depth 4, 5^3
+kernels):
 
-  build   compile every kernel (one nvcc per source, started together);
-  kernel  the conv kernel at each conv shape of the serving net at batch 8,
-          held against its plain PyTorch version (TF32 off) and timed beside
-          that version, a cuDNN bf16 conv (yardstick only) and its bound;
-  model   the MoDE net in eval mode (12 tasks) against plain_forward of its
-          re-parameterization, on one 32x128x128 patch;
-  serve   cli.evaluate on a reference-layout checkpoint and synthetic data
-          (the main path: launch counts are read from this run), then the
-          tiled predictor on a 32x256x256 volume against the same predictor
-          with the plain conv.
+  build         compile every kernel (one nvcc per source, started together);
+  kernel        K1 (shared-kernel conv) at each conv shape of the serving net
+                at batch 8, held against its plain PyTorch version (TF32 off)
+                and timed beside that version, a cuDNN bf16 conv (yardstick
+                only) and its bound;
+  model         the MoDE net in eval mode (12 tasks) against plain_forward of
+                its re-parameterization, on one 32x128x128 patch;
+  serve         cli.evaluate on a reference-layout checkpoint and synthetic
+                data (the serving path: K1's launch count is read from this
+                run), then the tiled predictor on a 32x256x256 volume against
+                the same predictor with the plain conv;
+  train_kernel  K2 (per-sample conv), K3 (its transpose, the dx) and K4 (the
+                per-sample dW) at each MoDE conv shape of training at batch
+                8, each held against its plain version in fp64 and timed
+                beside it, a cuDNN yardstick and its bound;
+  train         cli.train --synthetic on the card (the training path: K2-K4
+                launch counts are read from this run; K1 runs in val/test);
+  train_step    the full-width train step's time, its device profile, and
+                the gate-merge einsums' time;
+  train_check   one bf16 step through the merged route against the same step
+                through the expert-sum route (plain convs).
 
 One JSON object per line; a failed check raises, so the script exits
 non-zero and prints no result. It also fails without a CUDA card, and when
@@ -23,6 +35,7 @@ the repmode_tpu_torch package is not beside it. The last line is
 {"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
 import os
 import shutil
@@ -37,13 +50,24 @@ import torch
 import torch.nn.functional as F
 
 from repmode_tpu_torch.cli import evaluate
+from repmode_tpu_torch.cli import train as train_cli
 from repmode_tpu_torch.config import (
     DEFAULT_DATASETS, Config, DataConfig, EvalConfig, ModelConfig, TrainConfig)
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
-from repmode_tpu_torch.ops.conv3d import conv3d_same, conv3d_same_plain
+from repmode_tpu_torch.ops import mode as mode_ops
+from repmode_tpu_torch.ops.conv3d import (
+    conv3d_dw_persample,
+    conv3d_dw_persample_plain,
+    conv3d_same,
+    conv3d_same_persample,
+    conv3d_same_persample_plain,
+    conv3d_same_plain,
+)
 from repmode_tpu_torch.ops.kernels import build
+from repmode_tpu_torch.train.state import create_train_state
+from repmode_tpu_torch.train.step import make_train_step
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -112,7 +136,8 @@ def serving_convs(cfg, patch, batch):
 
 def device_breakdown(fn, top=6):
     """One call of fn under torch.profiler: device time by kernel name and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time. Returns (summary,
+    [(kernel name, ms)])."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -126,7 +151,8 @@ def device_breakdown(fn, top=6):
     busy_ms = sum(ms for _, ms in kernels)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
             "top_kernels_ms": [[name[:80], ms] for name, ms in kernels[:top]],
-            "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name)}
+            "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name)
+            }, kernels
 
 
 def build_phase():
@@ -339,7 +365,7 @@ def serve_phase(cfg, num_convs):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         pred_launches = conv3d_same.launches
-        emit({"phase": "serve_profile", **device_breakdown(lambda: pred(plain, vol))})
+        emit({"phase": "serve_profile", **device_breakdown(lambda: pred(plain, vol))[0]})
         with mock.patch.object(reparam, "conv3d_same", conv3d_same_plain):
             y_ref = TiledPredictor(pcfg)(plain, vol)
         torch.cuda.synchronize()
@@ -357,8 +383,355 @@ def serve_phase(cfg, num_convs):
         shutil.rmtree(tmp, ignore_errors=True)
     return main_launches
 
+BF16_TOL = ("|k-r| <= 2^-7*|r| + 1e-4*max|r| (one bf16 ulp; the floor covers fp32 "
+            "accumulation near zero), r = plain version in fp64 on the same bf16 inputs")
+DW_TOL = "max|k-r| <= 1e-3*max|r|, r = plain version in fp64 on the same bf16 inputs"
+CHECKED_SAMPLES = [0, 7]  # samples are independent: two of the batch keep fp64 cheap
 
-def main():
+
+def check_samples(name, y, ref, fp32_out):
+    """Hold kernel output y (samples CHECKED_SAMPLES) against the fp64 reference."""
+    y = y[CHECKED_SAMPLES].double()
+    err = (y - ref).abs()
+    top = ref.abs().max()
+    bad = err > 1e-3 * top if fp32_out else err > 2.0**-7 * ref.abs() + 1e-4 * top
+    ok = not bool(bad.any())
+    check(bool(torch.isfinite(y).all()) and float(top) > 0, f"{name}: degenerate")
+    return ok, float(err.max()), float(top)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def train_kernel_phase(convs):
+    """K2, K3 and K4 at each distinct MoDE conv shape of training at batch 8:
+    each against its plain version in fp64 on samples 0 and 7, then timed
+    beside its plain version (fp32, TF32 off), a cuDNN yardstick the port does
+    not call, and its bound. Returns per-kernel totals over one train step."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    distinct = {}
+    for cv in convs:
+        key = (cv["x"], cv["co"])
+        distinct.setdefault(key, dict(cv, names=[]))
+        distinct[key]["names"].append(cv["name"])
+    names = ("conv3d_same_persample", "conv3d_same_persample_T", "conv3d_dw_persample")
+    totals = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                      bytes_ms=0.0, max_abs_err=0.0, convs=0) for k in names}
+    for cv in distinct.values():
+        n, d, h, w, ci = cv["x"]
+        co, count = cv["co"], len(cv["names"])
+        # K3 (dx) runs for every conv but encoder_block1.conv1, whose input is data
+        count_dx = sum(nm != "encoder_block1.conv1" for nm in cv["names"])
+        p = d * h * w
+        x = torch.randn(cv["x"], generator=gen, device=dev).to(bf)
+        wk = (torch.randn((n, 5, 5, 5, ci, co), generator=gen, device=dev)
+              / (125 * ci) ** 0.5).to(bf)
+        dy = torch.randn((n, d, h, w, co), generator=gen, device=dev).to(bf)
+        idx = CHECKED_SAMPLES
+        # cuDNN yardsticks: grouped convs on channels_last_3d copies made here
+        xl = x.permute(0, 4, 1, 2, 3).reshape(1, n * ci, d, h, w).contiguous(
+            memory_format=torch.channels_last_3d)
+        dyl = dy.permute(0, 4, 1, 2, 3).reshape(1, n * co, d, h, w).contiguous(
+            memory_format=torch.channels_last_3d)
+        wl = wk.permute(0, 5, 4, 1, 2, 3).reshape(n * co, ci, 5, 5, 5).contiguous(
+            memory_format=torch.channels_last_3d)
+        wtl = wk.flip((1, 2, 3)).permute(0, 4, 5, 1, 2, 3).reshape(n * ci, co, 5, 5, 5).contiguous(
+            memory_format=torch.channels_last_3d)
+        flops = 2.0 * n * p * 125 * ci * co
+        wbytes = n * 125 * ci * co
+        runs = {
+            "conv3d_same_persample": dict(
+                count=count, fp32_out=False,
+                kernel=lambda: conv3d_same_persample(x, wk, compute_dtype=bf),
+                plain=lambda: conv3d_same_persample_plain(x, wk, compute_dtype=bf),
+                ref=lambda: conv3d_same_persample_plain(x[idx].double(), wk[idx].double()),
+                library=lambda: F.conv3d(xl, wl, padding=2, groups=n),
+                library_call="F.conv3d grouped (groups=N), bf16, channels_last_3d",
+                nbytes=x.numel() * 2 + wbytes * 2 + n * p * co * 2),
+            "conv3d_same_persample_T": dict(
+                count=count_dx, fp32_out=False,
+                kernel=lambda: conv3d_same_persample(dy, wk, transpose_taps=True,
+                                                     compute_dtype=bf),
+                plain=lambda: conv3d_same_persample_plain(dy, wk, transpose_taps=True,
+                                                          compute_dtype=bf),
+                ref=lambda: conv3d_same_persample_plain(dy[idx].double(), wk[idx].double(),
+                                                        transpose_taps=True),
+                library=lambda: F.conv3d(dyl, wtl, padding=2, groups=n),
+                library_call="F.conv3d grouped on a flipped, io-swapped copy of w (copy "
+                             "made outside the timing), bf16, channels_last_3d",
+                nbytes=dy.numel() * 2 + wbytes * 2 + n * p * ci * 2),
+            "conv3d_dw_persample": dict(
+                count=count, fp32_out=True,
+                kernel=lambda: conv3d_dw_persample(x, dy, 5, 5, 5, compute_dtype=bf),
+                plain=lambda: conv3d_dw_persample_plain(x, dy, 5, 5, 5, compute_dtype=bf),
+                ref=lambda: conv3d_dw_persample_plain(x[idx].double(), dy[idx].double(),
+                                                      5, 5, 5),
+                library=lambda: torch.nn.grad.conv3d_weight(
+                    xl, (n * co, ci, 5, 5, 5), dyl, padding=2, groups=n),
+                library_call="torch.nn.grad.conv3d_weight grouped (groups=N), bf16, "
+                             "channels_last_3d",
+                nbytes=x.numel() * 2 + dy.numel() * 2 + wbytes * 4),
+        }
+        for name, r in runs.items():
+            if r["count"] == 0:
+                continue
+            y = r["kernel"]()
+            ok, max_abs, top = check_samples(f"{name} {cv['names']}", y, r["ref"](), r["fp32_out"])
+            torch.cuda.synchronize()
+            del y
+            kernel_ms = cuda_ms(r["kernel"], reps=10, warmup=2)
+            plain_ms = cuda_ms(r["plain"], reps=3, warmup=1)
+            library_ms = cuda_ms(r["library"], reps=5, warmup=1)
+            bound_ms, bound_by = bound(flops, r["nbytes"])
+            emit({"phase": "train_kernel", "kernel": name, "convs": cv["names"],
+                  "launches_per_step": r["count"], "x": list(cv["x"]), "co": co,
+                  "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "library_call": r["library_call"], "bound_ms": bound_ms, "bound_by": bound_by,
+                  "tflops": flops / kernel_ms / 1e9, "max_abs_err": max_abs, "max_abs_ref": top,
+                  "tolerance": DW_TOL if r["fp32_out"] else BF16_TOL, "ok": ok})
+            check(ok, f"{name} {cv['names']}: kernel disagrees with the plain version ({max_abs})")
+            t, k = totals[name], r["count"]
+            t["ms"] += k * kernel_ms
+            t["plain_ms"] += k * plain_ms
+            t["library_ms"] += k * library_ms
+            t["bound_ms"] += k * bound_ms
+            t["ops_ms"] += k * flops / PEAK_BF16_FLOPS * 1e3
+            t["bytes_ms"] += k * r["nbytes"] / PEAK_BYTES * 1e3
+            t["max_abs_err"] = max(t["max_abs_err"], max_abs)
+            t["convs"] += k
+        del x, wk, dy, xl, dyl, wl, wtl, runs
+        torch.cuda.empty_cache()
+    for name, t in totals.items():
+        emit({"phase": "train_kernel", "kernel": name, "per_step_of": 8, **t})
+    return totals
+
+
+def kernel_counts():
+    return {"conv3d_same": conv3d_same.launches,
+            "conv3d_same_persample": conv3d_same_persample.launches,
+            "conv3d_same_persample_transpose": conv3d_same_persample.transpose_launches,
+            "conv3d_dw_persample": conv3d_dw_persample.launches}
+
+
+def reset_counts():
+    conv3d_same.launches = conv3d_dw_persample.launches = 0
+    conv3d_same_persample.launches = conv3d_same_persample.transpose_launches = 0
+
+
+def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
+    """cli.train --synthetic at full width: 4 tasks x 2 volumes = one mixed
+    batch of 8 per epoch, val and the best checkpoint after the last epoch,
+    its reload and the test pass. Returns the launch counts of the run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        exp_dir = os.path.join(tmp, "train")
+        argv = ["--synthetic", "--adopted_datasets", *tasks, "--num_epochs", str(epochs),
+                "--interval_val", str(epochs), "--path_exp_dir", exp_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        net = res["state"].net
+        steps = res["state"].step
+        # the run's initial weights, drawn again from the same seed
+        init_cfg = train_cli.to_config(train_cli.build_parser().parse_args(argv))
+        init = create_train_state(init_cfg, torch.Generator().manual_seed(init_cfg.train.seed),
+                                  "cuda").net
+        params = dict(net.named_parameters())
+        no_grad = [k for k, v in params.items() if v.grad is None]
+        bad_grad = [k for k, v in params.items()
+                    if v.grad is not None and not bool(torch.isfinite(v.grad).all())]
+        unchanged = [k for k, v in init.named_parameters() if torch.equal(v, params[k])]
+        csvs = [os.path.join(exp_dir, "metrics", f"{p}_train.csv")
+                for p in ("comp", "spec", "final")]
+        # 2 volumes per task in val and in test, one 32x128x128 patch each:
+        # one predictor batch of 8 per volume, num_convs K1 launches per batch
+        k1_expected = 2 * (2 * len(tasks)) * num_convs
+        out = {"phase": "train", "seconds": secs, "tasks": list(tasks), "epochs": epochs,
+               "steps": steps, "launches": counts,
+               "launches_per_step": {k: counts[k] / steps for k in
+                                     ("conv3d_same_persample", "conv3d_same_persample_transpose",
+                                      "conv3d_dw_persample")},
+               "k1_launches_val_test": counts["conv3d_same"], "k1_expected": k1_expected,
+               "train_loss": res["train_log"]["loss/epoch"],
+               "test_mse": res["test_log"]["metric_test/MSE"],
+               "best_path": os.path.basename(res["best_path"] or ""),
+               "params_without_grad": no_grad, "params_nonfinite_grad": bad_grad,
+               "params_unchanged": unchanged}
+        emit(out)
+        check(steps == epochs, f"train: {steps} steps, expected {epochs}")
+        check(counts["conv3d_same_persample"] == num_convs * steps, "train: K2 launches != 19/step")
+        check(counts["conv3d_same_persample_transpose"] == (num_convs - 1) * steps,
+              "train: K3 launches != 18/step")
+        check(counts["conv3d_dw_persample"] == num_convs * steps, "train: K4 launches != 19/step")
+        check(counts["conv3d_same"] == k1_expected, "train: K1 launches in val/test")
+        check(abs(out["train_loss"]) < float("inf") and out["train_loss"] == out["train_loss"],
+              "train: non-finite loss")
+        check(not no_grad and not bad_grad, "train: a parameter lacks a finite gradient")
+        check(not unchanged, "train: a parameter did not change")
+        check(res["best_path"] is not None, "train: no best checkpoint")
+        check(all(os.path.exists(p) for p in csvs), "train: metric CSVs missing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def full_width_batch(num_tasks, batch=8, seed=SEED + 20):
+    gen = torch.Generator().manual_seed(seed)
+    sig = torch.randn((batch, *PATCH, 1), generator=gen)
+    return {"signal": sig.cuda(), "target": (0.5 * sig + 0.1 * torch.randn(
+                sig.shape, generator=gen)).cuda(),
+            "task": (torch.arange(batch) % num_tasks).int().cuda()}
+
+
+def train_step_phase(convs, num_tasks, steps=6):
+    """The full-width train step (batch 8, mixed tasks, bf16): its time
+    (median over steps after one warm-up), its device profile, and the time
+    of the gate-merge einsums (forward and backward) at the 19 conv shapes."""
+    cfg = Config(model=ModelConfig(), data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 21), "cuda")
+    step = make_train_step(cfg, state)
+    batch = full_width_batch(num_tasks)
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof, kernels = device_breakdown(lambda: step(batch), top=10)
+    del prof["conv3d_same_ms"]
+
+    def ms_of(pred):
+        return sum(ms for name, ms in kernels if pred(name))
+
+    # the gate merge of every MoDE conv: einsum forward, then its backward
+    # (gradients of the bank and of the gate) from a per-sample dW
+    merge_ms = 0.0
+    dev = torch.device("cuda")
+    for cv in convs:
+        n, _, _, _, ci = cv["x"]
+        co = cv["co"]
+        bank = torch.randn((5, 5, 5, 5, ci, co), device=dev, requires_grad=True)
+        g = torch.rand((n, 5, co), device=dev, requires_grad=True)
+        dwn = torch.randn((n, 5, 5, 5, ci, co), device=dev)
+
+        def merge():
+            torch.einsum("neo,edhwio->ndhwio", g, bank).backward(dwn)
+
+        merge_ms += cuda_ms(merge, reps=3, warmup=1)
+        del bank, g, dwn
+    torch.cuda.empty_cache()
+    times.sort()
+    out = {"phase": "train_step", "batch": 8, "patch": list(PATCH), "tasks": num_tasks,
+           "step_ms_median": times[len(times) // 2], "step_ms_all": times,
+           "peak_memory_gb": peak_gb, **prof,
+           "k2_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "false>" in nm),
+           "k3_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "true>" in nm),
+           "k4_ms": ms_of(lambda nm: "conv3d_dw_kernel" in nm or "sum_partials_kernel" in nm),
+           "gate_merge_einsum_ms": merge_ms,
+           "gate_merge_note": "forward einsum + its backward at the 19 conv shapes, fp32, "
+                              "timed apart from the step with CUDA events"}
+    emit(out)
+    check(out["k2_ms"] > 0 and out["k3_ms"] > 0 and out["k4_ms"] > 0,
+          "train_step: a per-sample kernel is missing from the profile")
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def train_check_phase(num_tasks):
+    """One full-width forward+backward, batch 8, from the same weights on the
+    same batch, three ways: the merged route in bf16 (K2-K4), the expert-sum
+    route in bf16 and the expert-sum route in fp32 (both with plain convs: K1
+    has no backward). The merged route is held to the bf16 expert sum: loss,
+    global gradient, and every tensor's gradient direction. Tensors whose two
+    bf16 gradients point apart (cosine < 0.99) are ones whose gradient bf16
+    rounding does not resolve (near-cancelling sums, e.g. a BN bias ahead of
+    a batch-normalized conv); over those tensors together, the merged route's
+    error against the fp32 gradient may be at most twice the bf16 expert
+    sum's."""
+    cfg = Config(model=ModelConfig(), data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
+    batch = full_width_batch(num_tasks, seed=SEED + 30)
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 31), "cuda")
+    net = state.net
+    grads, losses, peaks = {}, {}, {}
+    for run, impl, cdt in (("merged", "auto", torch.bfloat16),
+                           ("expert_sum", "expert_sum", torch.bfloat16),
+                           ("expert_sum_fp32", "expert_sum", None)):
+        for m in net.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = cdt
+            if isinstance(m, MoDEConv):
+                m.train_impl = impl
+        net.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(mode_ops, "conv3d_same", conv3d_same_plain):
+            loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
+            loss.backward()
+        losses[run] = float(loss.detach())
+        peaks[run] = torch.cuda.max_memory_allocated() / 1e9
+        grads[run] = {k: v.grad.detach().double() for k, v in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        del loss
+        torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float((a.flatten() @ b.flatten()) / (a.norm() * b.norm() + 1e-30))
+
+    def rel(a, b):
+        return float((a - b).norm() / (b.norm() + 1e-30))
+
+    def global_rel(a, b):
+        return (sum(float((a[k] - b[k]).norm() ** 2) for k in a)
+                / sum(float(b[k].norm() ** 2) for k in a)) ** 0.5
+
+    ga, gb, g32 = grads["merged"], grads["expert_sum"], grads["expert_sum_fp32"]
+    cos_ab = {k: cos(ga[k], gb[k]) for k in ga}
+    total = sum(float(v.norm() ** 2) for v in g32.values())
+    unresolved = {k: {"cos_merged_vs_expert_sum": cos_ab[k],
+                      "rel_l2_merged_vs_fp32": rel(ga[k], g32[k]),
+                      "rel_l2_expert_sum_vs_fp32": rel(gb[k], g32[k]),
+                      "norm_share_fp32": float(g32[k].norm() ** 2) / total}
+                  for k in sorted(ga) if cos_ab[k] < 0.99}
+    low = sorted(unresolved)
+    pooled = ({"merged": global_rel({k: ga[k] for k in low}, {k: g32[k] for k in low}),
+               "expert_sum": global_rel({k: gb[k] for k in low}, {k: g32[k] for k in low})}
+              if low else None)
+    out = {"phase": "train_check", "losses": losses, "peak_memory_gb": peaks,
+           "loss_rel": abs(losses["merged"] - losses["expert_sum"]) / abs(losses["expert_sum"]),
+           "global_grad_rel_l2": global_rel(ga, gb), "tensors": len(ga),
+           "global_grad_rel_l2_vs_fp32": {"merged": global_rel(ga, g32),
+                                          "expert_sum": global_rel(gb, g32)},
+           "tensors_cosine_below_0.99": unresolved,
+           "below_0.99_pooled_rel_l2_vs_fp32": pooled,
+           "tolerance": "merged vs expert sum, both bf16: loss rel <= 1e-2, global gradient rel "
+                        "L2 <= 5e-2, per-tensor gradient cosine >= 0.99; over the tensors below "
+                        "0.99 together, the merged route's rel L2 to the fp32 expert sum <= 2x "
+                        "the bf16 expert sum's"}
+    emit(out)
+    check(out["loss_rel"] <= 1e-2, "train_check: loss differs")
+    check(out["global_grad_rel_l2"] <= 5e-2, "train_check: gradients differ")
+    check(pooled is None or pooled["merged"] <= 2 * pooled["expert_sum"],
+          f"train_check: gradients of {low} differ beyond the bf16 rounding of the reference")
+    del state, net, grads, ga, gb, g32
+    torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after build (a debugging aid: "
+                         "prints no kernels or ok line); default: every phase")
+    only = [p for p in ap.parse_args(argv).only.split(",") if p]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
@@ -366,26 +739,60 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     cfg = ModelConfig()  # mult_chan 32, depth 4, 5^3 kernels
-
-    build_phase()
-    t0 = time.perf_counter()
     convs = serving_convs(cfg, PATCH, batch=8)
     check(len(convs) == 19, f"expected 19 convs, got {len(convs)}")
+    build_phase()
+    if only:
+        phases = {"kernel": lambda: kernel_phase(convs),
+                  "model": lambda: model_phase(cfg, len(DEFAULT_DATASETS)),
+                  "serve": lambda: serve_phase(cfg, len(convs)),
+                  "train_kernel": lambda: train_kernel_phase(convs),
+                  "train": lambda: train_phase(len(convs)),
+                  "train_step": lambda: train_step_phase(convs, num_tasks=4),
+                  "train_check": lambda: train_check_phase(num_tasks=4)}
+        for name in only:
+            phases[name]()
+            torch.cuda.empty_cache()
+        print(f"total seconds {time.perf_counter() - t_start:.1f}", file=sys.stderr)
+        return 0
+
+    t0 = time.perf_counter()
     totals = kernel_phase(convs)
     emit({"phase": "kernel_done", "seconds": time.perf_counter() - t0})
     model_phase(cfg, len(DEFAULT_DATASETS))
     torch.cuda.empty_cache()
-    main_launches = serve_phase(cfg, len(convs))
+    serve_launches = serve_phase(cfg, len(convs))
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [{
-        "name": "conv3d_same", "route": "cuda",
-        "source": "repmode_tpu_torch/csrc/conv3d_same.cu",
-        "replaces": "repmode_tpu/ops/pallas/conv3d.py:641",
-        "launches": main_launches, "max_abs_err": totals["max_abs_err"],
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
-        "bound_by": "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes",
-        "library_ms": totals["library_ms"],
-    }]})
+    t0 = time.perf_counter()
+    train_totals = train_kernel_phase(convs)
+    emit({"phase": "train_kernel_done", "seconds": time.perf_counter() - t0})
+    train_counts = train_phase(len(convs))
+    torch.cuda.empty_cache()
+    train_step_phase(convs, num_tasks=4)
+    train_check_phase(num_tasks=4)
+
+    def entry(name, source, replaces, launches, t):
+        return {"name": name, "route": "cuda", "source": f"repmode_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+                "library_ms": t["library_ms"]}
+
+    emit({"kernels": [
+        entry("conv3d_same", "conv3d_same.cu", "repmode_tpu/ops/pallas/conv3d.py:641",
+              serve_launches, totals),
+        entry("conv3d_same_persample", "conv3d_persample.cu",
+              "repmode_tpu/ops/pallas/conv3d.py:396", train_counts["conv3d_same_persample"],
+              train_totals["conv3d_same_persample"]),
+        entry("conv3d_same_persample_transpose_taps", "conv3d_persample.cu",
+              "repmode_tpu/ops/pallas/conv3d.py:396",
+              train_counts["conv3d_same_persample_transpose"],
+              train_totals["conv3d_same_persample_T"]),
+        entry("conv3d_dw_persample", "conv3d_dw_persample.cu",
+              "repmode_tpu/ops/pallas/conv3d.py:553", train_counts["conv3d_dw_persample"],
+              train_totals["conv3d_dw_persample"]),
+    ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

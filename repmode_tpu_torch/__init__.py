@@ -8,5 +8,8 @@ first use by ``ops/kernels/build.py``) with a plain PyTorch version beside it.
 
 Ported so far: the serving path (``cli.evaluate``): the MoDE net in eval
 mode, its once-per-task re-parameterization into a plain conv net, tiled
-inference with Gaussian stitching, metrics and the eval CLI.
+inference with Gaussian stitching, metrics and the eval CLI; and the
+training path (``cli.train``): the train-mode net with the per-sample merged
+MoDE conv, batch-stat BN, the train step with Adam, the host patch sampler,
+``.p`` checkpoints and the experiment loop.
 """

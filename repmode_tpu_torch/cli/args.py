@@ -44,10 +44,11 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel devices (replaces --gpu_ids)")
+                   help="data-parallel devices (replaces --gpu_ids); only 1 is ported")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"],
-                   help="conv compute dtype (bf16 = AMP-equivalent)")
+                   help="conv compute dtype (bf16 = AMP-equivalent; the CUDA "
+                        "kernels compute in bf16 only)")
     # state flags (config.py:51-54)
     p.add_argument("--debugging", action="store_true")
     p.add_argument("--save_test_preds", action="store_true")
@@ -62,20 +63,21 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--tags", nargs="+", type=str, default=[])
     p.add_argument("--id", type=str, default=None)
-    # TPU-native extras
+    # the JAX package's extras
     p.add_argument("--synthetic", action="store_true",
                    help="run on procedurally generated data (no CZI corpus)")
     p.add_argument("--mult_chan", type=int, default=32)
     p.add_argument("--on_device_pipeline", choices=["auto", "on", "off"],
                    default="auto",
-                   help="HBM-resident patch pipeline (auto = on when the "
-                        "volume bank fits the budget; off = host sampler, "
-                        "exact reference batching incl. ragged tails)")
-    p.add_argument("--train_impl", default="auto",
-                   choices=["auto", "expert_sum", "merged_pallas", "merged"],
-                   help="MoDE conv execution (config.py ModelConfig."
-                        "train_impl; auto = per-sample merged Pallas "
-                        "kernels on single-chip TPU, expert sum elsewhere)")
+                   help="device-resident patch pipeline: not ported (A8), 'on' "
+                        "raises; auto and off run the host sampler (exact "
+                        "reference batching incl. ragged tails)")
+    p.add_argument("--train_impl", default="auto", choices=["auto", "expert_sum"],
+                   help="MoDE conv route of training (ModelConfig.train_impl): auto "
+                        "merges the experts per sample and runs the conv's forward, "
+                        "dx and dW through the port's CUDA kernels (their plain "
+                        "versions on the CPU); expert_sum is the five-conv reference, "
+                        "for the CPU (on the card its shared-kernel conv has no backward)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     return p

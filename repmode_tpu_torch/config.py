@@ -155,3 +155,12 @@ _SUBTYPES = {
     "eval": EvalConfig,
     "data": DataConfig,
 }
+
+
+def expanded_checkpoint_epochs(cfg: Config) -> Tuple[int, ...]:
+    """Expand interval_checkpoint into explicit epochs (reference main.py:75-77)."""
+    epochs = list(cfg.train.epoch_checkpoint)
+    if cfg.train.interval_checkpoint is not None:
+        times = int(cfg.train.num_epochs / cfg.train.interval_checkpoint)
+        epochs.extend((i + 1) * cfg.train.interval_checkpoint for i in range(times))
+    return tuple(epochs)

@@ -1,1 +1,1 @@
-"""Volume store and synthetic data of the port."""
+"""Volume store, synthetic data and the patch sampler of the port."""

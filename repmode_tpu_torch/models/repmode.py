@@ -1,4 +1,4 @@
-"""The RepMode MoDE U-Net as PyTorch modules, eval mode.
+"""The RepMode MoDE U-Net as PyTorch modules.
 
 Topology and parameter names are the reference's (fnet/nn_modules/RepMode.py:
 8-214): four MoDE encoder blocks (1 -> 32 -> 64 -> 128 -> 256 channels at
@@ -9,9 +9,16 @@ checkpoint) loads with ``strict=True``.
 
 Activations are NDHWC at the public functions, as in the JAX package; the
 parameters keep the reference's torch layouts and are viewed as DHWIO where
-the ops need them. MoDE convs run as the gated expert sum
-(``ops.mode.mode_conv_expert_sum``). The train-mode forward (batch-stat BN
-and its backward) is not ported yet: modules raise in training mode.
+the ops need them.
+
+Training mode (``net.train()``) is the JAX package's ``train=True``: BN
+normalizes by batch statistics and updates its running stats, and each MoDE
+conv runs the route ``cfg.train_impl`` names: 'auto' (or 'merged',
+'merged_pallas') the per-sample merged kernels (``mode_conv_merged_persample``:
+K2 forward, K3 dx, K4 dW on the card), 'expert_sum' the reference. Eval mode
+runs the expert sum with running-stat BN. The bf16 policy is the JAX
+package's: in training a conv's output is rounded to the compute dtype before
+BN, and every MoDE conv stores its post-ReLU output in the compute dtype.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ from repmode_tpu_torch.ops.mode import (
     ExpertKernels,
     gate_logits_to_weights,
     mode_conv_expert_sum,
+    mode_conv_merged_persample,
 )
-from repmode_tpu_torch.ops.norm import batch_norm_apply
+from repmode_tpu_torch.ops.norm import batch_norm_apply, batch_norm_train
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -45,13 +53,23 @@ def torch_uniform_init(
     return torch.empty(tuple(shape)).uniform_(-bound, bound, generator=generator)
 
 
-def _train_mode_error(module: nn.Module) -> NotImplementedError:
-    return NotImplementedError(
-        f"{type(module).__name__}: the train-mode forward is not ported yet; call .eval()"
-    )
+# train_impl -> the MoDE conv of the train-mode forward ('merged_pallas' is
+# the JAX package's name for the per-sample kernels K2-K4 port)
+_TRAIN_OPS = {
+    "auto": mode_conv_merged_persample,
+    "merged": mode_conv_merged_persample,
+    "merged_pallas": mode_conv_merged_persample,
+    "expert_sum": mode_conv_expert_sum,
+}
 
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
+    """Batch statistics in training mode (running stats updated), running
+    statistics in eval mode."""
+    if bn.training:
+        return batch_norm_train(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                momentum=bn.momentum, eps=bn.eps,
+                                num_batches_tracked=bn.num_batches_tracked)
     return batch_norm_apply(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
 
 
@@ -70,6 +88,7 @@ class MoDEConv(nn.Module):
         bn_eps: float = 1e-5,
         compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
+        train_impl: str = "auto",
     ):
         super().__init__()
         if conv_type not in ("normal", "final"):
@@ -79,6 +98,7 @@ class MoDEConv(nn.Module):
         self.kernel_size = kernel_size
         self.conv_type = conv_type
         self.compute_dtype = compute_dtype
+        self.train_impl = train_impl
         g = generator
         self.expert_conv5x5_conv = nn.Parameter(torch_uniform_init((co, ci, 5, 5, 5), ci * 125, g))
         self.expert_conv3x3_conv = nn.Parameter(torch_uniform_init((co, ci, 3, 3, 3), ci * 27, g))
@@ -110,11 +130,18 @@ class MoDEConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, task_emb: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise _train_mode_error(self)
         logits = F.linear(task_emb.to(self.gate.weight.dtype), self.gate.weight, self.gate.bias)
         g = gate_logits_to_weights(logits, self.num_experts, self.out_chan)
-        y = mode_conv_expert_sum(x, self.experts(), g, compute_dtype=self.compute_dtype)
+        if self.training:
+            op = _TRAIN_OPS.get(self.train_impl)
+            if op is None:
+                raise ValueError(f"train_impl must be one of {sorted(_TRAIN_OPS)}, "
+                                 f"got {self.train_impl!r}")
+            y = op(x, self.experts(), g, compute_dtype=self.compute_dtype)
+            if self.compute_dtype is not None:
+                y = y.to(self.compute_dtype)  # conv output in bf16 before BN, as in JAX
+        else:
+            y = mode_conv_expert_sum(x, self.experts(), g, compute_dtype=self.compute_dtype)
         if self.conv_type == "normal":
             y = torch.relu(_bn(y, self.subsequent_layer[0]))
         if self.compute_dtype is not None:
@@ -131,7 +158,7 @@ class MoDESubNet2Conv(nn.Module):
         super().__init__()
         common = dict(
             kernel_size=cfg.kernel_size, bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps,
-            compute_dtype=compute_dtype, generator=generator,
+            compute_dtype=compute_dtype, generator=generator, train_impl=cfg.train_impl,
         )
         self.conv1 = MoDEConv(num_experts, num_tasks, n_in, n_out, **common)
         self.conv2 = MoDEConv(num_experts, num_tasks, n_out, n_out, **common)
@@ -165,8 +192,6 @@ class MoDEEncoderBlock(nn.Module):
         )
 
     def forward(self, x, task_emb):
-        if self.training:
-            raise _train_mode_error(self)
         x_skip = self.conv_more(x, task_emb)
         w_down = self.conv_down[0].weight.permute(2, 3, 4, 1, 0)
         x = downsample2x_conv(x_skip, w_down, compute_dtype=self.compute_dtype)
@@ -191,8 +216,6 @@ class MoDEDecoderBlock(nn.Module):
                                          compute_dtype, generator)
 
     def forward(self, x, x_skip, task_emb):
-        if self.training:
-            raise _train_mode_error(self)
         w_up = self.convt[0].weight.permute(2, 3, 4, 0, 1)
         x = upsample2x_convt(x, w_up, compute_dtype=self.compute_dtype)
         x = torch.relu(_bn(x, self.convt[1]))
@@ -205,7 +228,7 @@ class RepModeNet(nn.Module):
     """Task-conditioned MoDE U-Net (reference Net, RepMode.py:8-71).
 
     ``forward(x, task_id)``: x (N,D,H,W,Cin), task_id (N,) int ->
-    (N,D,H,W,Cout) fp32 (fp64 for an fp64 net). Eval mode only.
+    (N,D,H,W,Cout) fp32 (fp64 for an fp64 net), in training or eval mode.
     """
 
     def __init__(
@@ -236,13 +259,11 @@ class RepModeNet(nn.Module):
                 e, t, chans[i], chans[i - 1], cfg, cdt, generator))
         self.conv_out = MoDEConv(
             e, t, c, cfg.out_channels, kernel_size=cfg.kernel_size, conv_type="final",
-            compute_dtype=cdt, generator=generator,
+            compute_dtype=cdt, generator=generator, train_impl=cfg.train_impl,
         )
         self.to(dev)
 
     def forward(self, x: torch.Tensor, task_id: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise _train_mode_error(self)
         task_emb = F.one_hot(task_id.long(), self.num_tasks)
         skips = []
         for i in range(1, self.cfg.depth + 1):

@@ -1,11 +1,21 @@
 """3-D conv primitives on NDHWC activations and DHWIO kernels.
 
-``conv3d_same`` is the port of the TPU kernel
-``repmode_tpu/ops/pallas/conv3d.py:pallas_conv3d_same``: on a CUDA tensor it
-launches the hand-written kernel in ``csrc/conv3d_same.cu``; on a CPU tensor
-it runs ``conv3d_same_plain``, the plain PyTorch version that defines the
-same arithmetic (inputs rounded to the compute dtype, sums in fp32, fp32
-epilogue).
+Three wrappers port the TPU kernels of ``repmode_tpu/ops/pallas/conv3d.py``.
+On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
+runs its plain PyTorch version, which defines the same arithmetic (inputs
+rounded to the compute dtype, sums in fp32, fp64 stays fp64):
+
+  conv3d_same            K1, ``pallas_conv3d_same``: shared kernel, fused
+                         bias(+ReLU) epilogue (``csrc/conv3d_same.cu``);
+  conv3d_same_persample  K2 and K3, ``pallas_conv3d_same_persample``: one
+                         kernel per sample, and its transpose (the dx of the
+                         merged MoDE conv) reading the forward kernels
+                         (``csrc/conv3d_persample.cu``);
+  conv3d_dw_persample    K4, ``pallas_conv3d_dw_persample``: the per-sample
+                         weight gradient (``csrc/conv3d_dw_persample.cu``).
+
+Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
+(and ``conv3d_same_persample.transpose_launches`` those of K3).
 
 The k=2, s=2 down/upsample convs have non-overlapping windows, so they are
 reshapes around one matrix product, as in the JAX package.
@@ -76,8 +86,10 @@ def conv3d_same(
 
     On a CUDA tensor: one launch of the bf16 tensor-core kernel on the
     current stream (``compute_dtype`` must be bf16, or None with a bf16
-    ``x``; ``out_dtype`` fp32 (default) or bf16). On a CPU tensor: the plain
-    version. ``conv3d_same.launches`` counts kernel launches.
+    ``x``; ``out_dtype`` fp32 (default) or bf16). The kernel has no
+    backward, as its TPU counterpart has none: with grad enabled and an input
+    that requires grad it raises. On a CPU tensor: the plain version.
+    ``conv3d_same.launches`` counts kernel launches.
     """
     if x.device.type == "cpu":
         return conv3d_same_plain(
@@ -85,6 +97,14 @@ def conv3d_same(
         )
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias)
+    ):
+        raise RuntimeError(
+            "conv3d_same: the CUDA kernel has no backward, and an input requires grad; "
+            "train through the per-sample merged route (train_impl 'auto'), or run "
+            "this conv under torch.no_grad()"
+        )
     y = _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype)
     conv3d_same.launches += 1
     return y
@@ -124,9 +144,7 @@ def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tenso
     co_pad = -(-co // bn) * bn
     taps = kd * kh * kw
 
-    xb = xb.contiguous()
-    if xb.data_ptr() % 16:
-        xb = xb.clone()
+    xb = _aligned(xb)
     wp = torch.zeros((taps, ci_pad, co_pad), dtype=torch.bfloat16, device=x.device)
     wp[:, :ci, :co] = w.reshape(taps, ci, co)
     bp = None
@@ -163,13 +181,288 @@ def _to_multiple_of_8_channels(x: torch.Tensor, w: torch.Tensor):
         return x, w
     kd, kh, kw, _, co = w.shape
     if kw > 1 and kw * ci <= 32:
-        pw, wl = (kw - 1) // 2, x.shape[3]
-        xp = F.pad(x, (0, 0, pw, pw))
-        x = torch.cat([xp[:, :, :, dx:dx + wl] for dx in range(kw)], dim=-1)
+        x = _pack_w_taps(x, kw)
         w = w.reshape(kd, kh, 1, kw * ci, co)
         ci = kw * ci
     pad = -ci % 8
     return F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+
+
+def _pack_w_taps(x: torch.Tensor, kw: int) -> torch.Tensor:
+    """x'[..., w, (dx, i)] = x[..., w + dx - pW, i], zeros past the edges:
+    a conv with kW taps along W over x is a conv with one tap over x'."""
+    pw, wl = (kw - 1) // 2, x.shape[3]
+    xp = F.pad(x, (0, 0, pw, pw))
+    return torch.cat([xp[:, :, :, dx:dx + wl] for dx in range(kw)], dim=-1)
+
+
+# ------------------------------------------------ per-sample kernels (K2-K4)
+
+
+def conv3d_same_persample_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    transpose_taps: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``conv3d_same_persample``: a grouped conv, groups = N.
+
+    x: (N,D,H,W,C), w: (N,kD,kH,kW,Ci,Co) with odd taps. Forward: C = Ci, out
+    (N,D,H,W,Co). transpose_taps: x is a cotangent with C = Co and the result
+    is conv(x, flip(w) with i and o swapped), (N,D,H,W,Ci). Output in
+    ``out_dtype`` (default: the accumulation dtype, fp32 or fp64).
+    """
+    n, kd, kh, kw = w.shape[:4]
+    xr = _round(x, compute_dtype)
+    wr = _round(w, compute_dtype).to(xr.dtype)
+    if transpose_taps:
+        wr = wr.flip((1, 2, 3)).transpose(4, 5)
+    ci, co = wr.shape[4:]
+    if x.shape[0] != n or x.shape[-1] != ci:
+        raise ValueError(f"conv3d_same_persample: x {tuple(x.shape)} does not fit w "
+                         f"{tuple(w.shape)} (transpose_taps={transpose_taps})")
+    d, h, wl = x.shape[1:4]
+    y = F.conv3d(
+        xr.permute(0, 4, 1, 2, 3).reshape(1, n * ci, d, h, wl),
+        wr.permute(0, 5, 4, 1, 2, 3).reshape(n * co, ci, kd, kh, kw),
+        padding=((kd - 1) // 2, (kh - 1) // 2, (kw - 1) // 2),
+        groups=n,
+    ).reshape(n, co, d, h, wl).permute(0, 2, 3, 4, 1)
+    return y.to(out_dtype or y.dtype).contiguous()
+
+
+def conv3d_same_persample(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    transpose_taps: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """'same' stride-1 3-D conv with a different kernel per sample (K2), or
+    with ``transpose_taps`` its transpose (K3, the dx of the forward).
+
+    x: (N,D,H,W,C), w: (N,kD,kH,kW,Ci,Co) in its forward layout either way
+    (see ``conv3d_same_persample_plain``). On a CUDA tensor: one launch of the
+    bf16 tensor-core kernel on the current stream (``compute_dtype`` bf16, or
+    None with a bf16 ``x``; ``out_dtype`` bf16, the default); the transposed
+    conv reads w's taps reversed and writes no copy of w. On a CPU tensor:
+    the plain version. ``conv3d_same_persample.launches`` counts launches of
+    the forward kernel, ``.transpose_launches`` those of the transposed one.
+    """
+    if x.device.type == "cpu":
+        return conv3d_same_persample_plain(
+            x, w, transpose_taps=transpose_taps, compute_dtype=compute_dtype,
+            out_dtype=out_dtype,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_persample: unsupported device {x.device}")
+    y = _conv3d_same_persample_cuda(x, w, transpose_taps, compute_dtype, out_dtype)
+    if transpose_taps:
+        conv3d_same_persample.transpose_launches += 1
+    else:
+        conv3d_same_persample.launches += 1
+    return y
+
+
+conv3d_same_persample.launches = 0
+conv3d_same_persample.transpose_launches = 0
+
+
+def _bf16_operands(name, tensors, compute_dtype, device):
+    cdt = compute_dtype if compute_dtype is not None else tensors[0].dtype
+    if cdt != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel computes in bfloat16, got compute_dtype {cdt}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: operands on {t.device} and {device}")
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned start (the kernels copy 16 bytes)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _persample_operands(x: torch.Tensor, w: torch.Tensor, transpose: bool):
+    """Give K2/K3 a contraction channel count (x's) and, forward, a kernel
+    output axis that are multiples of 8 (16-byte copies). Only the narrow
+    1-channel input and output convs are touched, so the copies are of 1-8
+    channel tensors. A narrow forward input gets its kW taps packed into
+    channels (``_pack_w_taps``; w becomes (N,kD,kH,1,kW*Ci,Co)), then zero
+    channels; a narrow transposed input (the cotangent of a Co=1 conv) gets
+    zero channels, and w zero columns on its output axis to match. The conv's
+    value on the original output channels is unchanged.
+    """
+    n, kd, kh, kw, ci, co = w.shape
+    cin = co if transpose else ci
+    if cin % 8 and not transpose:
+        if kw > 1 and kw * ci <= 32:
+            x = _pack_w_taps(x, kw)
+            w = w.reshape(n, kd, kh, 1, kw * ci, co)
+        pad = -x.shape[-1] % 8
+        x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+    elif cin % 8:
+        x, w = F.pad(x, (0, -cin % 8)), F.pad(w, (0, -cin % 8))
+    if not transpose and w.shape[-1] % 8:
+        w = F.pad(w, (0, -w.shape[-1] % 8))
+    return x, w
+
+
+def _conv3d_same_persample_cuda(x, w, transpose, compute_dtype, out_dtype) -> torch.Tensor:
+    name = "conv3d_same_persample"
+    if x.dim() != 5 or w.dim() != 6:
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be 5-D and w {tuple(w.shape)} 6-D")
+    n, d, h, wl, c = x.shape
+    wn, kd, kh, kw, wci, wco = w.shape
+    cin, cout = (wco, wci) if transpose else (wci, wco)
+    if wn != n or c != cin or kd % 2 == 0 or kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"{name}: w {tuple(w.shape)} must have odd taps and fit x "
+                         f"{tuple(x.shape)} (transpose_taps={transpose})")
+    if (out_dtype or torch.bfloat16) != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel writes bfloat16, got out_dtype {out_dtype}")
+    xb, wb = _bf16_operands(name, (x, w), compute_dtype, x.device)
+    xb, wb = _persample_operands(xb, wb, transpose)
+    xb, wb = _aligned(xb), _aligned(wb)
+    kw, cin = wb.shape[3], xb.shape[-1]
+    kc = 16 if cin <= 16 else 32
+    bn = 16 if cout <= 16 else (32 if cout <= 32 else 64)
+    y = torch.empty((n, d, h, wl, cout), dtype=torch.bfloat16, device=x.device)
+    lib = build.load("conv3d_persample")
+    err = lib.conv3d_persample_bf16(
+        xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, d, h, wl, cin, cout, kd, kh, kw,
+        wb.shape[4], wb.shape[5], int(transpose), kc, bn,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.conv3d_persample_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"w {tuple(w.shape)}, transpose_taps={transpose}")
+    return y
+
+
+def conv3d_dw_persample_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    kd: int,
+    kh: int,
+    kw: int,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``conv3d_dw_persample``: per tap and sample, one GEMM.
+
+    dW[n,t,i,o] = sum_p x[n, p+t-c, i] * dy[n, p, o] with zero padding.
+    x: (N,D,H,W,Ci), dy: (N,D,H,W,Co) -> (N,kD,kH,kW,Ci,Co) in the
+    accumulation dtype. x is zero-padded and flattened over (D,H,W); dy is
+    placed at the start of a volume of the same padded shape. Position p then
+    sits at the same flat index q in both, and tap t reads x at q + off(t):
+    each (tap, sample) is one GEMM over a shifted view of x, no copy. The
+    positions are cut into chunks that form the GEMM's batch (summed after),
+    so that a GEMM with K in the hundreds of thousands still fills a card.
+    """
+    xr = _round(x, compute_dtype)
+    dyr = _round(dy, compute_dtype).to(xr.dtype)
+    n, d, h, wl, ci = x.shape
+    co = dy.shape[-1]
+    pd, ph, pw = (kd - 1) // 2, (kh - 1) // 2, (kw - 1) // 2
+    hp, wp = h + 2 * ph, wl + 2 * pw
+    xf = F.pad(xr, (0, 0, pw, pw, ph, ph, pd, pd)).reshape(n, -1, ci)
+    length = xf.shape[1] - ((kd - 1) * hp * wp + (kh - 1) * wp + kw - 1)
+    chunk = min(length, 4096)
+    chunks = -(-length // chunk)
+    extra = chunks * chunk - length  # zeros past the end, in both
+    xf = F.pad(xf, (0, 0, 0, extra))
+    dyf = F.pad(dyr, (0, 0, 0, 2 * pw, 0, 2 * ph, 0, 2 * pd)).reshape(n, -1, co)[:, :length]
+    dyf = F.pad(dyf, (0, 0, 0, extra)).reshape(n, chunks, chunk, co)
+    out = torch.empty((n, kd, kh, kw, ci, co), dtype=xr.dtype, device=x.device)
+    for a in range(kd):
+        for b in range(kh):
+            for c in range(kw):
+                off = (a * hp + b) * wp + c
+                xs = xf[:, off:off + chunks * chunk].reshape(n, chunks, chunk, ci)
+                for j in range(n):
+                    out[j, a, b, c] = torch.bmm(xs[j].transpose(1, 2), dyf[j]).sum(0)
+    return out
+
+
+def conv3d_dw_persample(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    kd: int,
+    kh: int,
+    kw: int,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Per-sample weight gradient of the 'same' conv (K4), fp32 out.
+
+    x: (N,D,H,W,Ci), dy: (N,D,H,W,Co) -> (N,kD,kH,kW,Ci,Co). On a CUDA
+    tensor: the bf16 tensor-core kernel on the current stream (one kernel,
+    plus a pass that adds its per-split partial sums in a fixed order where
+    the positions are split; no atomics). On a CPU tensor: the plain version.
+    ``conv3d_dw_persample.launches`` counts launches.
+    """
+    if x.device.type == "cpu":
+        return conv3d_dw_persample_plain(x, dy, kd, kh, kw, compute_dtype=compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_dw_persample: unsupported device {x.device}")
+    out = _conv3d_dw_persample_cuda(x, dy, kd, kh, kw, compute_dtype)
+    conv3d_dw_persample.launches += 1
+    return out
+
+
+conv3d_dw_persample.launches = 0
+
+
+def _conv3d_dw_persample_cuda(x, dy, kd, kh, kw, compute_dtype) -> torch.Tensor:
+    name = "conv3d_dw_persample"
+    if x.dim() != 5 or dy.shape[:4] != x.shape[:4]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and dy {tuple(dy.shape)} must be 5-D "
+                         "with the same (N,D,H,W)")
+    if kd % 2 == 0 or kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"{name}: taps ({kd},{kh},{kw}) must be odd")
+    n, d, h, wl, ci = x.shape
+    co = dy.shape[-1]
+    xb, dyb = _bf16_operands(name, (x, dy), compute_dtype, x.device)
+    xb, dyb, kw_k = _dw_operands(xb, dyb, kw)
+    xb, dyb = _aligned(xb), _aligned(dyb)
+    cip, cop = xb.shape[-1], dyb.shape[-1]
+    lib = build.load("conv3d_dw_persample")
+    splits = lib.conv3d_dw_persample_splits(n, d, h, wl, cip, cop, kd, kh, kw_k)
+    out = torch.empty((n, kd, kh, kw_k, cip, cop), dtype=torch.float32, device=x.device)
+    work = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    err = lib.conv3d_dw_persample_bf16(
+        xb.data_ptr(), dyb.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
+        n, d, h, wl, cip, cop, kd, kh, kw_k, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.conv3d_dw_persample_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"dy {tuple(dy.shape)}, taps ({kd},{kh},{kw})")
+    return _dw_unpack(out, ci, co, kw)
+
+
+def _dw_operands(x: torch.Tensor, dy: torch.Tensor, kw: int):
+    """Give K4 channel counts that are multiples of 8: a narrow input (the
+    1-channel input conv) gets its kW taps packed into channels, so its dW
+    comes out as (kD,kH,1,kW*Ci) and is unpacked by ``_dw_unpack``; other
+    counts are zero-padded. Returns (x, dy, kW of the packed problem)."""
+    ci = x.shape[-1]
+    if ci % 8 and kw > 1 and kw * ci <= 32:
+        x, kw = _pack_w_taps(x, kw), 1
+    return F.pad(x, (0, -x.shape[-1] % 8)), F.pad(dy, (0, -dy.shape[-1] % 8)), kw
+
+
+def _dw_unpack(out: torch.Tensor, ci: int, co: int, kw: int) -> torch.Tensor:
+    """The dW of ``_dw_operands``' problem -> (N,kD,kH,kW,Ci,Co)."""
+    n, kd, kh, kw_k = out.shape[:4]
+    out = out[..., :(kw // kw_k) * ci, :co]
+    return out.reshape(n, kd, kh, kw, ci, co).contiguous()
 
 
 def downsample2x_conv(
@@ -227,7 +520,7 @@ def avg_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """k^3 average pool, stride 1, zero padding, count_include_pad.
 
     Border windows divide by k^3 including the padding, as the reference's
-    fixed 1/k^3 pool kernel does. x: (N,D,H,W,C). Eval only.
+    fixed 1/k^3 pool kernel does. x: (N,D,H,W,C).
     """
     s = _box1d(_box1d(_box1d(x, k, 1), k, 2), k, 3)
     return s * (1.0 / k**3)

@@ -28,6 +28,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # kernel name -> source file in csrc/
 SOURCES: Dict[str, str] = {
     "conv3d_same": "conv3d_same.cu",
+    "conv3d_persample": "conv3d_persample.cu",
+    "conv3d_dw_persample": "conv3d_dw_persample.cu",
 }
 
 NVCC_FLAGS = (
@@ -116,5 +118,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "conv3d_same":
         lib.conv3d_same_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 15 + [ptr]
         lib.conv3d_same_bf16.restype = i32
-        lib.conv3d_same_error_string.argtypes = [i32]
-        lib.conv3d_same_error_string.restype = ctypes.c_char_p
+    elif name == "conv3d_persample":
+        lib.conv3d_persample_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 14 + [ptr]
+        lib.conv3d_persample_bf16.restype = i32
+    elif name == "conv3d_dw_persample":
+        lib.conv3d_dw_persample_splits.argtypes = [i32] * 9
+        lib.conv3d_dw_persample_splits.restype = i32
+        lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+        lib.conv3d_dw_persample_bf16.restype = i32
+    else:
+        raise KeyError(f"no C interface declared for kernel {name!r}")
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [i32]
+    err_fn.restype = ctypes.c_char_p

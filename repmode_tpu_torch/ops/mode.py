@@ -1,4 +1,4 @@
-"""Mixture-of-Diverse-Experts (MoDE) convolution math, eval path.
+"""Mixture-of-Diverse-Experts (MoDE) convolution math.
 
 A MoDE unit (reference fnet/nn_modules/RepMode.py:123-214) holds five
 experts: learnable 5^3, 3^3 and 1^3 convs, and two fixed average pools (3^3,
@@ -9,9 +9,17 @@ avg5 o conv1] (RepMode.py:184-188).
 
 Convolution is linear in its weights and the gate scales output channels,
 so the gated sum of the five expert convs equals one conv with the merged
-kernel (``merge_kernels``). ``mode_conv_expert_sum`` runs the five convs and
-combines them; the re-parameterized serving net (models/reparam.py) merges
-once per task instead.
+kernel (``merge_kernels``). Three executions of that one function:
+
+  mode_conv_merged_persample  the training route: the gate merges the experts
+                 into one 5^3 kernel per sample (an einsum, autograd through
+                 bank and gate), then ``MergedConvPerSample`` runs the conv
+                 with a hand-written forward (K2), dx (K3) and dW (K4) on the
+                 card, their plain versions on the CPU;
+  mode_conv_expert_sum  the reference: five shared-kernel convs, combined;
+  mode_conv_single      one merged kernel for a task-uniform batch; the
+                 re-parameterized serving net (models/reparam.py) merges once
+                 per task and runs this.
 """
 
 from __future__ import annotations
@@ -21,7 +29,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repmode_tpu_torch.ops.conv3d import avg_pool_same, conv3d_same
+from repmode_tpu_torch.ops.conv3d import (
+    avg_pool_same,
+    conv3d_dw_persample,
+    conv3d_same,
+    conv3d_same_persample,
+)
 
 
 class ExpertKernels(NamedTuple):
@@ -91,9 +104,11 @@ def mode_conv_expert_sum(
 
     Equals conv(x_n, merge_kernels(ek, g)[n]) by linearity. The pools run in
     the accumulation dtype; each expert conv rounds its inputs to
-    ``compute_dtype`` and returns fp32 sums; the combine runs in fp32. (The
-    JAX package's training path keeps pools and expert outputs in the compute
-    dtype for its VJP's memory; this eval path has no backward.)
+    ``compute_dtype`` and returns fp32 sums; the combine runs in fp32 (the
+    JAX package combines in the compute dtype; this is the more exact of
+    the two). Autograd runs through it where the convs have a backward: the
+    plain convs on the CPU; on the card the shared-kernel conv raises under
+    grad (its kernel has no backward).
     """
     xa = x.to(torch.promote_types(x.dtype, torch.float32))
     pooled3 = avg_pool_same(xa, 3)
@@ -109,3 +124,64 @@ def mode_conv_expert_sum(
     for e in range(1, 5):
         out = out + gf[:, e, None, None, None, :] * ys[e]
     return out
+
+
+class MergedConvPerSample(torch.autograd.Function):
+    """'same' conv with one kernel per sample and a hand-written backward.
+
+    The port of ``repmode_tpu/ops/mode.py:merged_conv_persample`` (a
+    ``jax.custom_vjp``). x: (N,D,H,W,Ci), wn: (N,kD,kH,kW,Ci,Co), both in the
+    compute dtype. Forward K2, dx K3 (the transposed conv on the forward's
+    kernels, skipped when x needs no grad), dW K4; each a hand-written kernel
+    on the card and its plain version on the CPU. Dtypes as in JAX: y and dx
+    in x's dtype, dW summed in fp32 and returned in wn's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, wn):
+        ctx.save_for_backward(x, wn)
+        return conv3d_same_persample(x, wn, compute_dtype=x.dtype, out_dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wn = ctx.saved_tensors
+        dyc = dy.to(x.dtype)
+        dx = dwn = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_same_persample(dyc, wn, transpose_taps=True, compute_dtype=x.dtype,
+                                       out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            kd, kh, kw = wn.shape[1:4]
+            dwn = conv3d_dw_persample(x, dyc, kd, kh, kw, compute_dtype=x.dtype).to(wn.dtype)
+        return dx, dwn
+
+
+def mode_conv_merged_persample(
+    x: torch.Tensor,
+    ek: ExpertKernels,
+    g: torch.Tensor,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
+    kernel_size: int = 5,
+) -> torch.Tensor:
+    """Per-sample merged-kernel MoDE conv: the reference's routing() merge
+    (RepMode.py:171-208) at merged-kernel operations.
+
+    The native-layout counterpart of ``mode_conv_merged_s2d_pallas``: the
+    bank and the fp32 gate merge ``einsum("neo,edhwio->ndhwio")`` (autograd
+    through both), a cast of x and the merged kernels to the compute dtype
+    (fp32 floor when None), then ``MergedConvPerSample``. x: (N,D,H,W,Ci),
+    g: (N,E,Co) -> (N,D,H,W,Co) in the compute dtype.
+    """
+    bank = expert_bank(ek, kernel_size)
+    gdt = torch.promote_types(g.dtype, torch.float32)
+    wn = torch.einsum("neo,edhwio->ndhwio", g.to(gdt), bank.to(gdt))
+    cdt = compute_dtype or torch.promote_types(x.dtype, torch.float32)
+    return MergedConvPerSample.apply(x.to(cdt), wn.to(cdt))
+
+
+def mode_conv_single(
+    x: torch.Tensor, w: torch.Tensor, *, compute_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Task-uniform batch: one merged kernel for every sample (RepMode.py:210)."""
+    return conv3d_same(x, w, compute_dtype=compute_dtype)

@@ -1,1 +1,1 @@
-"""Experiment loop of the port (eval pass only so far)."""
+"""Train state, train step and the experiment loop of the port."""

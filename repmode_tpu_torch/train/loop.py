@@ -1,24 +1,43 @@
-"""Experiment directories and the full-volume eval pass.
+"""Experiment orchestration: train -> periodic val -> best checkpoint -> test.
 
-The eval half of ``repmode_tpu.train.loop`` (reference run_eval,
-main.py:269-326): volumes are predicted one at a time by the tiled
-predictor through the re-parameterized net, which is built once per task and
-kept for the pass; per-volume MSE/MAE/R^2 are aggregated per dataset. The
-training loop comes with the training path.
+The port of ``repmode_tpu.train.loop`` on one card with the host sampler
+(reference main.py:21-234, run_train:240-266, run_eval:269-326):
+
+  * epochs from the state's epoch counter (resume), validation every
+    ``interval_val`` epochs, scheduled + best-on-val-MSE ``.p`` checkpoints;
+  * one train step per host batch; per-task losses stay on the device and
+    are read once per epoch;
+  * eval predicts full volumes one at a time with the tiled predictor
+    through the re-parameterized net (built once per task for the pass) and
+    aggregates per-volume MSE/MAE/R^2 per dataset;
+  * after training the best checkpoint is reloaded and tested, and the
+    comp_/spec_/final_ CSVs are written.
+
+Not ported: the on-device patch pipeline (A8), data parallelism (A10), the
+run tracker and profiler hooks (A12); each raises where it is asked for.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
+import torch
+
+from repmode_tpu_torch.ckpt.checkpoint import CheckpointPolicy, load_train_state
 from repmode_tpu_torch.config import Config
+from repmode_tpu_torch.data.sampler import PatchSampler
 from repmode_tpu_torch.data.store import VolumeStore
+from repmode_tpu_torch.device import DeviceLike, resolve_device
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.metrics.aggregate import MetricAggregator
 from repmode_tpu_torch.metrics.metrics import metric_stats
 from repmode_tpu_torch.models.reparam import StateDict, make_inference
+from repmode_tpu_torch.train.state import TrainState, create_train_state, param_count
+from repmode_tpu_torch.train.step import make_train_step
 
 
 class ExperimentDirs:
@@ -60,3 +79,109 @@ def run_eval_pass(
     log = agg.log_dict(eval_type, epoch if eval_type == "val" else None)
     log[f"time/{eval_type}"] = time.perf_counter() - t0
     return log, agg
+
+
+def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampler,
+                    epoch: int) -> dict:
+    """One epoch; returns its log dict. The host reads the metrics once, at
+    the epoch's end."""
+    t0 = time.perf_counter()
+    device = next(state.net.parameters()).device
+    pending = [step_fn({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+               for batch in sampler.epoch()]
+
+    num_tasks = cfg.num_tasks
+    loss_sum = 0.0
+    task_sums = np.zeros(num_tasks, np.float64)
+    task_counts = np.zeros(num_tasks, np.float64)
+    grad_norms = []
+    for metrics in pending:  # single sync point
+        loss_sum += float(metrics["loss"])
+        task_sums += metrics["per_task_loss_sum"].double().cpu().numpy()
+        task_counts += metrics["per_task_count"].double().cpu().numpy()
+        if "grad_norm" in metrics:
+            grad_norms.append(float(metrics["grad_norm"]))
+
+    state.epoch += 1
+    log = {"X-axis/epoch": epoch + 1, "loss/epoch": loss_sum / max(len(pending), 1)}
+    for i, name in enumerate(cfg.data.adopted_datasets):
+        if task_counts[i] > 0:
+            log[f"loss_epoch/{name}"] = task_sums[i] / task_counts[i]
+    if grad_norms:
+        log["monitor/grad_norm"] = float(np.mean(grad_norms))
+        log["monitor/param_norm"] = float(pending[-1]["param_norm"])
+    log["time/train"] = time.perf_counter() - t0
+    return log
+
+
+def run_experiment(
+    cfg: Config,
+    stores: Dict[str, VolumeStore],
+    logger: Optional[logging.Logger] = None,
+    device: DeviceLike = "cuda",
+) -> Dict:
+    """Full train + val + test experiment (reference main.main, main.py:21-234).
+
+    Returns {'state', 'best_path', 'train_log' (the last epoch's, when one
+    ran), 'test_log' (when there is a test store)}.
+    """
+    logger = logger or logging.getLogger("SSP")
+    device = resolve_device(device)
+    if cfg.train.num_devices != 1:
+        raise NotImplementedError("data-parallel training (num_devices > 1) is not ported (A10)")
+    if cfg.train.on_device_pipeline:
+        raise NotImplementedError("the on-device patch pipeline is not ported (A8); "
+                                  "the host sampler runs when on_device_pipeline is auto/off")
+    dirs = ExperimentDirs(cfg)
+    with open(os.path.join(dirs.logs, f"train_options_{cfg.exp_name}.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    # model init / resume (main.py:129-138)
+    state = create_train_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device)
+    if cfg.path_load_model and os.path.exists(cfg.path_load_model):
+        load_train_state(cfg.path_load_model, state)
+        logger.info(f"[MODEL]   Model loaded from: {cfg.path_load_model}")
+    else:
+        logger.info(f"[MODEL]   Model initialized as: {cfg.model.name}")
+    logger.info(f"[MODEL]   Parameters: {param_count(state):,}")
+
+    step_fn = make_train_step(cfg, state)
+    sampler = None
+    if "train" in stores and len(stores["train"]):
+        sampler = PatchSampler(stores["train"], cfg.train.batch_size, cfg.train.patch_size,
+                               seed=cfg.train.seed, flip_prob=cfg.train.random_flip_prob)
+    predictor = TiledPredictor(cfg, device=device)
+    policy = CheckpointPolicy(cfg, dirs.checkpoints)
+    results: Dict = {}
+
+    # epoch loop (main.py:156-199)
+    for epoch in range(state.epoch, cfg.train.num_epochs):
+        if sampler is None:
+            raise ValueError("no train volumes: the train store is missing or empty")
+        log = results["train_log"] = run_train_epoch(cfg, state, step_fn, sampler, epoch)
+        logger.info("[TRAIN]   NO.{} epoch training | loss: {:.6f}".format(
+            epoch + 1, log["loss/epoch"]))
+        logger.debug(f"[TRAIN]   {log}")
+        if (epoch + 1) % cfg.train.interval_val == 0 and "val" in stores:
+            with torch.no_grad():
+                val_log, _ = run_eval_pass(cfg, state.net.state_dict(), stores["val"],
+                                           predictor, "val", epoch)
+            logger.info("[VAL]     NO.{} epoch validation | MSE: {:.6f}".format(
+                epoch + 1, val_log["metric_val/MSE"]))
+            for p in policy.on_validation(epoch, val_log["metric_val/MSE"], state):
+                logger.info(f"[MODEL]   Checkpoint saved to: {p}")
+
+    # reload best + final test (main.py:209-225)
+    if policy.best_path is not None:
+        load_train_state(policy.best_path, state)
+        logger.info(f"[ACTION]  Evaluate model: {policy.best_path}")
+    results.update(state=state, best_path=policy.best_path)
+    if "test" in stores:
+        with torch.no_grad():
+            test_log, agg = run_eval_pass(cfg, state.net.state_dict(), stores["test"],
+                                          predictor, "test")
+        logger.info("[TEST]    Test | MSE: {:.6f}".format(test_log["metric_test/MSE"]))
+        agg.to_csvs(dirs.metrics, cfg.exp_name)
+        results["test_log"] = test_log
+    logger.info("[ACTION]  Experiment ends.")
+    return results

@@ -1,7 +1,10 @@
-"""The hand-written CUDA conv kernel against its plain PyTorch version, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test needs a CUDA card (the kernel has no CPU mode) and skips without
-one. On the card, run this file without the JAX package's conftest:
+K1 (``conv3d_same``), K2 and K3 (``conv3d_same_persample``, forward and
+``transpose_taps``) and K4 (``conv3d_dw_persample``), and the training path
+through K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
+skips without one. On the card, run this file without the JAX package's
+conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 
@@ -10,17 +13,28 @@ bf16-rounded inputs (cuDNN may pick fp32 algorithms whose own error exceeds
 a bf16 ulp near zero). Tolerances: fp32 out, max|k - r| <= 1e-3 * max|r|;
 bf16 out, |k - r| <= 2^-7 |r| + 1e-4 max|r| (one bf16 ulp, plus a floor for
 values near zero that covers fp32 accumulation over up to 64,000 products).
+K4's fp32 dW is held to max|k - r| <= 1e-3 * max|r|.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repmode_tpu_torch.config import ModelConfig
+from repmode_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.reparam import plain_forward, reparameterize
 from repmode_tpu_torch.models.repmode import RepModeNet
-from repmode_tpu_torch.ops.conv3d import conv3d_same, conv3d_same_plain
+from repmode_tpu_torch.ops.conv3d import (
+    conv3d_dw_persample,
+    conv3d_dw_persample_plain,
+    conv3d_same,
+    conv3d_same_persample,
+    conv3d_same_persample_plain,
+    conv3d_same_plain,
+)
+from repmode_tpu_torch.ops.mode import MergedConvPerSample
+from repmode_tpu_torch.train.state import create_train_state
+from repmode_tpu_torch.train.step import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +113,112 @@ def test_plain_forward_through_kernel_matches_plain_version(cuda, monkeypatch):
     ref = plain_forward(plain, x, cfg, compute_dtype=torch.bfloat16)
     rel = ((y - ref).norm() / ref.norm()).item()
     assert torch.isfinite(y).all() and rel <= 1e-2, rel
+
+
+def test_kernel_refuses_autograd(cuda):
+    x = torch.zeros((1, 2, 2, 2, 8), device=cuda)
+    w = torch.zeros((3, 3, 3, 8, 8), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv3d_same(x, w, compute_dtype=torch.bfloat16)
+
+
+# ------------------------------------------------ per-sample kernels K2-K4
+
+# (N, D, H, W, Ci, Co, taps): the narrow cases Ci=1 (taps packed into
+# channels) and Co=1, asymmetric Ci != Co, channel counts off the tiles, W
+# below 64, between 64 and 128 and above 128, depths smaller than the taps,
+# non-cubic taps and a kW (7) that K4 serves one tap at a time.
+PS_CASES = [
+    (2, 4, 6, 8, 1, 32, (5, 5, 5)),
+    (2, 3, 5, 20, 32, 1, (5, 5, 5)),
+    (1, 3, 5, 130, 24, 40, (3, 3, 3)),
+    (2, 2, 8, 8, 64, 48, (5, 5, 5)),
+    (1, 2, 9, 70, 16, 8, (3, 5, 1)),
+    (2, 5, 3, 12, 8, 16, (1, 1, 1)),
+    (1, 3, 4, 36, 3, 5, (5, 3, 5)),
+    (1, 2, 4, 20, 8, 8, (3, 3, 7)),
+]
+
+
+def ps_operands(case, cuda):
+    n, d, h, w, ci, co, taps = case
+    g = torch.Generator().manual_seed(hash(case) % 2**31)
+    bf = torch.bfloat16
+    x = torch.randn((n, d, h, w, ci), generator=g).to(cuda, bf)
+    wk = (torch.randn((n, *taps, ci, co), generator=g) / (ci * np.prod(taps)) ** 0.5).to(cuda, bf)
+    dy = torch.randn((n, d, h, w, co), generator=g).to(cuda, bf)
+    return x, wk, dy, taps
+
+
+@pytest.mark.parametrize("kernel", ["forward", "transpose", "dw"])
+@pytest.mark.parametrize("case", PS_CASES)
+def test_persample_kernels_match_plain(cuda, case, kernel):
+    x, wk, dy, taps = ps_operands(case, cuda)
+    counters = lambda: (conv3d_same_persample.launches, conv3d_same_persample.transpose_launches,
+                        conv3d_dw_persample.launches)
+    before = counters()
+    if kernel == "forward":
+        y = conv3d_same_persample(x, wk)
+        ref = conv3d_same_persample_plain(x.double(), wk.double())
+        expect = (1, 0, 0)
+    elif kernel == "transpose":
+        y = conv3d_same_persample(dy, wk, transpose_taps=True)
+        ref = conv3d_same_persample_plain(dy.double(), wk.double(), transpose_taps=True)
+        expect = (0, 1, 0)
+    else:
+        y = conv3d_dw_persample(x, dy, *taps)
+        ref = conv3d_dw_persample_plain(x.double(), dy.double(), *taps)
+        expect = (0, 0, 1)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counters(), before)) == expect
+    assert y.shape == ref.shape
+    assert y.dtype == (torch.float32 if kernel == "dw" else torch.bfloat16)
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+def test_persample_kernels_are_deterministic(cuda):
+    x, wk, dy, taps = ps_operands((2, 8, 32, 64, 32, 32, (5, 5, 5)), cuda)
+    assert torch.equal(conv3d_dw_persample(x, dy, *taps), conv3d_dw_persample(x, dy, *taps))
+    assert torch.equal(conv3d_same_persample(dy, wk, transpose_taps=True),
+                       conv3d_same_persample(dy, wk, transpose_taps=True))
+
+
+def test_merged_conv_backward_launches_k3_and_k4(cuda):
+    x, wk, dy, _ = ps_operands((2, 3, 5, 20, 16, 24, (5, 5, 5)), cuda)
+    x.requires_grad_()
+    wk.requires_grad_()
+    before = (conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches)
+    y = MergedConvPerSample.apply(x, wk)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_dx = conv3d_same_persample_plain(dy.double(), wk.detach().double(), transpose_taps=True)
+    ref_dw = conv3d_dw_persample_plain(x.detach().double(), dy.double(), 5, 5, 5)
+    assert x.grad.dtype == torch.bfloat16 and within_tolerance(x.grad, ref_dx)
+    # dW is summed in fp32 and returned in the kernels' dtype (bf16), as in JAX
+    assert wk.grad.dtype == torch.bfloat16 and within_tolerance(wk.grad, ref_dw)
+
+
+def test_train_step_runs_through_the_per_sample_kernels(cuda):
+    """A small bf16 train step on the card: every MoDE conv's forward, dx
+    (but the first conv's) and dW run through K2, K3 and K4; K1 is not used."""
+    cfg = Config(model=ModelConfig(mult_chan=4, depth=2),
+                 data=DataConfig(adopted_datasets=("dna", "lamin_b1")), train=TrainConfig())
+    state = create_train_state(cfg, torch.Generator().manual_seed(3), cuda)
+    step = make_train_step(cfg, state)
+    g = torch.Generator().manual_seed(4)
+    sig = torch.randn((2, 16, 32, 32, 1), generator=g)
+    batch = {"signal": sig.to(cuda), "target": (0.5 * sig).to(cuda),
+             "task": torch.tensor([0, 1], dtype=torch.int32, device=cuda)}
+    before = (conv3d_same.launches, conv3d_same_persample.launches,
+              conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches)
+    m = step(batch)
+    torch.cuda.synchronize()
+    after = (conv3d_same.launches, conv3d_same_persample.launches,
+             conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches)
+    convs = 4 * cfg.model.depth + 3
+    assert tuple(a - b for a, b in zip(after, before)) == (0, convs, convs - 1, convs)
+    assert torch.isfinite(m["loss"]) and int(m["per_task_count"].sum()) == 2
+    for name, p in state.net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name

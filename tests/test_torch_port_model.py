@@ -81,13 +81,17 @@ def test_golden_plain_forward_fp64(golden):
 
 
 def test_train_mode_forward_raises(golden):
-    z, _, net = golden
-    net.train()
-    try:
-        with pytest.raises(NotImplementedError, match="train-mode"):
-            net(ndhwc(z["x"]), torch.from_numpy(z["tasks_uniform"]))
-    finally:
-        net.eval()
+    """The train-mode forward runs the MoDE route ``train_impl`` names and
+    raises for a name it does not know (eval mode does not read it)."""
+    z, sd, _ = golden
+    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_impl="vmapped"), NUM_TASKS,
+                     device="cpu").double()
+    net.load_state_dict(sd, strict=True)
+    with pytest.raises(ValueError, match="train_impl"):
+        net.train()(ndhwc(z["x"]), torch.from_numpy(z["tasks_uniform"]))
+    with torch.no_grad():
+        y = net.eval()(ndhwc(z["x"]), torch.from_numpy(z["tasks_uniform"]))
+    np.testing.assert_allclose(to_ncdhw(y), z["y_eval"], rtol=1e-4, atol=1e-4)
 
 
 def test_model_without_cuda_or_cpu_request_raises(monkeypatch):
