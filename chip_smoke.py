@@ -27,7 +27,17 @@ kernels):
   train_step    the full-width train step's time, its device profile, and
                 the gate-merge einsums' time;
   train_check   one bf16 step through the merged route against the same step
-                through the expert-sum route (plain convs).
+                through the expert-sum route (plain convs);
+  s2d_kernel    K5 (the depth-padded conv chain of the space-to-depth serving
+                levels) at each of its conv shapes at batch 8, held against
+                its plain version in fp64 with exact-zero halo rows, timed
+                beside that version, a cuDNN bf16 conv (yardstick only) and
+                its bound; K1 at its new s2d shapes;
+  serve_s2d     the native, XLA s2d (K1) and K5 routes on one batch against
+                each other, with their launch counts; run_eval_pass on the K5
+                route (the s2d serving path: K5's launch count is read from
+                this run); the tiled predictor on a 32x256x256 volume, fused
+                and two_phase (equal), beside the other two routes.
 
 One JSON object per line; a failed check raises, so the script exits
 non-zero and prints no result. It also fails without a CUDA card, and when
@@ -53,11 +63,14 @@ from repmode_tpu_torch.cli import evaluate
 from repmode_tpu_torch.cli import train as train_cli
 from repmode_tpu_torch.config import (
     DEFAULT_DATASETS, Config, DataConfig, EvalConfig, ModelConfig, TrainConfig)
+from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
 from repmode_tpu_torch.ops import mode as mode_ops
 from repmode_tpu_torch.ops.conv3d import (
+    conv3d_dpad,
+    conv3d_dpad_plain,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
     conv3d_same,
@@ -66,6 +79,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_plain,
 )
 from repmode_tpu_torch.ops.kernels import build
+from repmode_tpu_torch.train.loop import run_eval_pass
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
 
@@ -151,7 +165,8 @@ def device_breakdown(fn, top=6):
     busy_ms = sum(ms for _, ms in kernels)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
             "top_kernels_ms": [[name[:80], ms] for name, ms in kernels[:top]],
-            "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name)
+            "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name),
+            "conv3d_dpad_ms": sum(ms for name, ms in kernels if "conv3d_dpad_kernel" in name),
             }, kernels
 
 
@@ -165,13 +180,17 @@ def build_phase():
                       for k, v in report.items()}})
 
 
-def kernel_phase(convs):
-    """Each distinct conv shape once: check against the plain version, time."""
+def kernel_phase(convs, phase="kernel"):
+    """Each distinct conv shape once: check against the plain version, time.
+    A conv's taps are (5,5,5) unless it names others; its epilogue is
+    bias+ReLU or none (``bias_relu``) unless it names one ("bias_relu",
+    "bias" or "none")."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     distinct = {}
     for cv in convs:
-        key = (cv["x"], cv["co"], cv["bias_relu"], cv["in_dtype"])
+        cv = dict(cv, epilogue=cv.get("epilogue") or ("bias_relu" if cv["bias_relu"] else "none"))
+        key = (cv["x"], cv["co"], cv["epilogue"], cv["in_dtype"], cv["out_dtype"], cv.get("taps"))
         distinct.setdefault(key, dict(cv, count=0, names=[]))
         distinct[key]["count"] += 1
         distinct[key]["names"].append(cv["name"])
@@ -180,11 +199,14 @@ def kernel_phase(convs):
                   ops_ms=0.0, bytes_ms=0.0)
     for cv in distinct.values():
         n, d, h, w, ci = cv["x"]
-        co, relu = cv["co"], cv["bias_relu"]
+        co, relu = cv["co"], cv["epilogue"] == "bias_relu"
+        taps = cv.get("taps", (5, 5, 5))
+        ntaps = taps[0] * taps[1] * taps[2]
         odt = getattr(torch, cv["out_dtype"])
         x = torch.randn(cv["x"], generator=gen, device=dev).to(getattr(torch, cv["in_dtype"]))
-        wk = torch.randn((5, 5, 5, ci, co), generator=gen, device=dev) / (125 * ci) ** 0.5
-        b = torch.randn((co,), generator=gen, device=dev) * 0.1 if relu else None
+        wk = torch.randn((*taps, ci, co), generator=gen, device=dev) / (ntaps * ci) ** 0.5
+        b = (None if cv["epilogue"] == "none"
+             else torch.randn((co,), generator=gen, device=dev) * 0.1)
 
         def kernel():
             return conv3d_same(x, wk, b, relu=relu, compute_dtype=torch.bfloat16, out_dtype=odt)
@@ -198,7 +220,7 @@ def kernel_phase(convs):
         bl = None if b is None else b.to(torch.bfloat16)
 
         def library():
-            y = F.conv3d(xl, wl, bl, padding=2)
+            y = F.conv3d(xl, wl, bl, padding=tuple(k // 2 for k in taps))
             return torch.relu_(y) if relu else y
 
         # the reference is the plain version evaluated in fp64 on the same
@@ -227,13 +249,14 @@ def kernel_phase(convs):
         kernel_ms = cuda_ms(kernel, reps=10, warmup=2)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(library, reps=10, warmup=2)
-        flops = 2.0 * n * d * h * w * 125 * ci * co
+        flops = 2.0 * n * d * h * w * ntaps * ci * co
         nbytes = (x.numel() * x.element_size() + wk.numel() * 2 + (0 if b is None else co * 4)
                   + n * d * h * w * co * odt.itemsize)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
-        emit({"phase": "kernel", "convs": cv["names"], "launches_per_batch": cv["count"],
-              "x": list(cv["x"]), "co": co, "epilogue": "bias_relu" if relu else "none",
+        emit({"phase": phase, "convs": cv["names"], "launches_per_batch": cv["count"],
+              "x": list(cv["x"]), "taps": list(taps), "co": co,
+              "epilogue": cv["epilogue"], "in_dtype": cv["in_dtype"],
               "out_dtype": cv["out_dtype"], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -250,7 +273,7 @@ def kernel_phase(convs):
         totals["max_abs_err"] = max(totals["max_abs_err"], max_abs)
         del x, wk, b, xl, wl, bl
         torch.cuda.empty_cache()
-    emit({"phase": "kernel", "per_batch_of": 8, "convs_per_batch": len(convs), **totals})
+    emit({"phase": phase, "per_batch_of": 8, "convs_per_batch": len(convs), **totals})
     return totals
 
 
@@ -514,11 +537,12 @@ def kernel_counts():
     return {"conv3d_same": conv3d_same.launches,
             "conv3d_same_persample": conv3d_same_persample.launches,
             "conv3d_same_persample_transpose": conv3d_same_persample.transpose_launches,
-            "conv3d_dw_persample": conv3d_dw_persample.launches}
+            "conv3d_dw_persample": conv3d_dw_persample.launches,
+            "conv3d_dpad": conv3d_dpad.launches}
 
 
 def reset_counts():
-    conv3d_same.launches = conv3d_dw_persample.launches = 0
+    conv3d_same.launches = conv3d_dw_persample.launches = conv3d_dpad.launches = 0
     conv3d_same_persample.launches = conv3d_same_persample.transpose_launches = 0
 
 
@@ -609,7 +633,7 @@ def train_step_phase(convs, num_tasks, steps=6):
         times.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof, kernels = device_breakdown(lambda: step(batch), top=10)
-    del prof["conv3d_same_ms"]
+    del prof["conv3d_same_ms"], prof["conv3d_dpad_ms"]
 
     def ms_of(pred):
         return sum(ms for name, ms in kernels if pred(name))
@@ -725,6 +749,269 @@ def train_check_phase(num_tasks):
     del state, net, grads, ga, gb, g32
     torch.cuda.empty_cache()
 
+# ------------------------------------------------ space-to-depth serving (K5)
+
+
+def s2d_dpad_convs(cfg, patch, batch):
+    """Every K5 conv of plain_forward_s2d_pallas in launch order: name,
+    depth-padded input shape (N, D+kD-1, H/2, W/2, Ci) in s2d channels, Co.
+    encoder_block1.conv1 (4 s2d input channels) runs on K1 instead."""
+    levels = reparam.default_s2d_levels(cfg)
+    pd = (cfg.kernel_size - 1) // 2
+    c = [4 * cfg.in_channels * cfg.mult_chan * 2**i for i in range(cfg.depth)]
+    convs = []
+
+    def add(name, level, ci, co):
+        d, h, w = (s >> (level - 1) for s in patch)
+        convs.append(dict(name=name, x=(batch, d + 2 * pd, h // 2, w // 2, ci), co=co))
+
+    for i in levels:
+        if i > 1:
+            add(f"encoder_block{i}.conv1", i, c[i - 2], c[i - 1])
+        add(f"encoder_block{i}.conv2", i, c[i - 1], c[i - 1])
+    for i in reversed(levels):
+        add(f"decoder_block{i}.conv1", i, 2 * c[i - 1], c[i - 1])
+        add(f"decoder_block{i}.conv2", i, c[i - 1], c[i - 1])
+    return convs
+
+
+def s2d_kernel_phase(cfg, batch=8):
+    """K5 at each distinct conv shape of the K5 route at batch 8: against its
+    plain version in fp64 on samples 0 and 7, halo rows exactly zero, then
+    timed beside its plain version (fp32, TF32 off), a cuDNN bf16 conv over
+    the padded rows (a yardstick the port does not call) and its bound.
+    Returns K5's totals per batch. (K1 at the s2d routes' shapes is held in
+    serve_s2d_phase, at every call the routes make.)"""
+    convs = s2d_dpad_convs(cfg, PATCH, batch)
+    check(len(convs) == 7, f"expected 7 K5 convs, got {len(convs)}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    bf = torch.bfloat16
+    kd = cfg.kernel_size
+    pd = (kd - 1) // 2
+    distinct = {}
+    for cv in convs:
+        distinct.setdefault((cv["x"], cv["co"]), dict(cv, names=[]))["names"].append(cv["name"])
+    check(len(distinct) == 5, f"expected 5 distinct K5 shapes, got {len(distinct)}")
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
+                  bytes_ms=0.0, max_abs_err=0.0, convs=0)
+    for cv in distinct.values():
+        n, dp, h, w, ci = cv["x"]
+        co, count, d = cv["co"], len(cv["names"]), cv["x"][1] - 2 * pd
+        x = torch.zeros(cv["x"], dtype=bf, device=dev)
+        x[:, pd:dp - pd] = torch.randn((n, d, h, w, ci), generator=gen, device=dev).to(bf)
+        wk = (torch.randn((kd, 3, 3, ci, co), generator=gen, device=dev)
+              / (kd * 9 * ci) ** 0.5).to(bf)
+        b = torch.randn((co,), generator=gen, device=dev) * 0.1
+        xl = x.permute(0, 4, 1, 2, 3)  # channels_last_3d view
+        wl = wk.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        bl = b.to(bf)
+
+        def kernel():
+            return conv3d_dpad(x, wk, b, relu=True)
+
+        def plain():
+            return conv3d_dpad_plain(x, wk, b, relu=True, compute_dtype=bf)
+
+        def library():
+            return torch.relu_(F.conv3d(xl, wl, bl, padding=(0, 1, 1)))
+
+        y = kernel()
+        torch.cuda.synchronize()
+        halo_zero = bool((y[:, :pd] == 0).all()) and bool((y[:, dp - pd:] == 0).all())
+        ref = conv3d_dpad_plain(x[CHECKED_SAMPLES].double(), wk.double(), b.double(), relu=True)
+        ok, max_abs, top = check_samples(f"conv3d_dpad {cv['names']}", y, ref, fp32_out=False)
+        del y, ref
+        torch.cuda.empty_cache()
+        kernel_ms = cuda_ms(kernel, reps=10, warmup=2)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        library_ms = cuda_ms(library, reps=10, warmup=2)
+        flops = 2.0 * n * d * h * w * kd * 9 * ci * co
+        nbytes = x.numel() * 2 + wk.numel() * 2 + co * 4 + n * dp * h * w * co * 2
+        bound_ms, bound_by = bound(flops, nbytes)
+        emit({"phase": "s2d_kernel", "kernel": "conv3d_dpad", "convs": cv["names"],
+              "launches_per_batch": count, "x_padded": list(cv["x"]), "taps": [kd, 3, 3],
+              "co": co, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "library_call": "F.conv3d bf16, channels_last_3d, padding (0,1,1) over the "
+                              "padded rows, bias, ReLU",
+              "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kernel_ms / 1e9,
+              "max_abs_err": max_abs, "max_abs_ref": top, "halo_rows_zero": halo_zero,
+              "tolerance": BF16_TOL, "ok": ok})
+        check(halo_zero, f"conv3d_dpad {cv['names']}: a halo row is not zero")
+        check(ok, f"conv3d_dpad {cv['names']}: kernel disagrees with the plain version "
+                  f"({max_abs})")
+        totals["ms"] += count * kernel_ms
+        totals["plain_ms"] += count * plain_ms
+        totals["library_ms"] += count * library_ms
+        totals["bound_ms"] += count * bound_ms
+        totals["ops_ms"] += count * flops / PEAK_BF16_FLOPS * 1e3
+        totals["bytes_ms"] += count * nbytes / PEAK_BYTES * 1e3
+        totals["max_abs_err"] = max(totals["max_abs_err"], max_abs)
+        totals["convs"] += count
+        del x, wk, b, xl, wl, bl
+        torch.cuda.empty_cache()
+    emit({"phase": "s2d_kernel", "kernel": "conv3d_dpad", "per_batch_of": batch, **totals})
+    return totals
+
+
+def s2d_k1_names(cfg, levels, route):
+    """The K1 calls of an s2d route ("xla_s2d" or "k5") in launch order."""
+    names = []
+    for i in range(1, cfg.depth + 1):
+        if route == "k5" and i in levels:  # K5 takes all but the 4-channel entry conv
+            names += ["encoder_block1.conv1 (s2d)"] if i == 1 else []
+        else:
+            s2d = " (s2d)" if i in levels else ""
+            names += [f"encoder_block{i}.conv1{s2d}", f"encoder_block{i}.conv2{s2d}"]
+    names += ["bottle_block.conv1", "bottle_block.conv2"]
+    for i in range(cfg.depth, 0, -1):
+        if i not in levels:
+            names += [f"decoder_block{i}.conv1", f"decoder_block{i}.conv2"]
+        elif route == "xla_s2d":
+            names += [f"decoder_block{i}.conv1 (s2d, skip half)",
+                      f"decoder_block{i}.conv1 (s2d, up half)", f"decoder_block{i}.conv2 (s2d)"]
+    return names + (["conv_out (s2d)"] if route == "k5" else [])  # XLA route: tap-major
+
+
+def recording_k1(calls):
+    """A stand-in for reparam's conv3d_same: appends each call's input
+    shape, taps, Co, epilogue and dtypes to ``calls``, then launches K1."""
+    def conv(x, w, bias=None, *, relu=False, compute_dtype=None, out_dtype=None):
+        check(compute_dtype == torch.bfloat16 and (bias is not None or not relu),
+              "an s2d route calls K1 outside bf16 compute or with ReLU but no bias")
+        calls.append(dict(
+            x=tuple(x.shape), co=w.shape[-1], taps=tuple(w.shape[:3]),
+            epilogue="bias_relu" if relu else ("none" if bias is None else "bias"),
+            in_dtype=str(x.dtype).removeprefix("torch."),
+            out_dtype=str(out_dtype or torch.float32).removeprefix("torch.")))
+        return conv3d_same(x, w, bias, relu=relu, compute_dtype=compute_dtype, out_dtype=out_dtype)
+    return conv
+
+
+def serve_s2d_phase(cfg, tasks=("dna", "lamin_b1")):
+    """The space-to-depth serving routes at full width. (1) One batch of 8
+    patches through the native route (K1), the XLA s2d route (K1 at s2d
+    shapes) and the K5 route, against each other, with their launch counts.
+    (2) run_eval_pass on the K5 route over 2 tasks x 2 synthetic volumes:
+    the s2d serving path, whose launch counts are returned. (3) The tiled
+    predictor on a 32x256x256 volume: the K5 route fused and two_phase
+    (equal), the XLA s2d and native routes, each with its device profile.
+    After (1), K1 is held against its plain version at every distinct call
+    (input shape, taps, Co, epilogue, dtypes) that each s2d route made."""
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    net = seeded_net(cfg, len(tasks), SEED + 2)
+    state = net.state_dict()
+    levels = reparam.default_s2d_levels(cfg)
+    convs = 4 * cfg.depth + 3
+    k5_per_batch = 4 * len(levels) - 1  # all chained s2d convs but encoder_block1.conv1
+    expected = {"native": {"conv3d_same": convs, "conv3d_dpad": 0},
+                # conv_out is the tap-major matmul; each s2d decoder conv1 is two K1 calls
+                "xla_s2d": {"conv3d_same": convs - 1 + len(levels), "conv3d_dpad": 0},
+                "k5": {"conv3d_same": convs - k5_per_batch, "conv3d_dpad": k5_per_batch}}
+    with torch.no_grad():
+        plain = reparam.reparameterize(state, cfg, len(tasks), 0)
+        plain2 = reparam.to_s2d_plain(plain, cfg, levels)
+    x = torch.randn((8, *PATCH, 1), generator=torch.Generator().manual_seed(SEED + 41)).cuda()
+    routes = {
+        "native": lambda: reparam.plain_forward(plain, x, cfg, compute_dtype=bf),
+        "xla_s2d": lambda: reparam.plain_forward_s2d(plain2, x, cfg, levels, compute_dtype=bf),
+        "k5": lambda: reparam.plain_forward_s2d_pallas(plain2, x, cfg, levels, compute_dtype=bf),
+    }
+    outs, counts, fwd_ms, k1_calls = {}, {}, {}, {}
+    with torch.no_grad():
+        for name, fn in routes.items():
+            reset_counts()
+            k1_calls[name] = []
+            with mock.patch.object(reparam, "conv3d_same", recording_k1(k1_calls[name])):
+                outs[name] = fn()
+            torch.cuda.synchronize()
+            c = kernel_counts()
+            counts[name] = {k: c[k] for k in ("conv3d_same", "conv3d_dpad")}
+            fwd_ms[name] = cuda_ms(fn, reps=3, warmup=0)
+    rel = {"k5_vs_xla_s2d": rel_l2(outs["k5"], outs["xla_s2d"]),
+           "xla_s2d_vs_native": rel_l2(outs["xla_s2d"], outs["native"]),
+           "k5_vs_native": rel_l2(outs["k5"], outs["native"])}
+    emit({"phase": "serve_s2d_batch", "batch": 8, "patch": list(PATCH), "levels": list(levels),
+          "forward_ms": fwd_ms, "launches": counts, "expected_launches": expected,
+          "rel_l2": rel, "out_std": float(outs["native"].std()),
+          "tolerance": "rel L2 at the output: K5 route vs XLA s2d route <= 1e-2, each s2d "
+                       "route vs native <= 2e-2 (bf16 compute)"})
+    check(all(bool(torch.isfinite(y).all()) for y in outs.values())
+          and float(outs["native"].std()) > 0, "serve_s2d: degenerate output")
+    check(counts == expected, f"serve_s2d: launches {counts}, expected {expected}")
+    check(rel["k5_vs_xla_s2d"] <= 1e-2, "serve_s2d: K5 route vs XLA s2d route")
+    check(rel["xla_s2d_vs_native"] <= 2e-2 and rel["k5_vs_native"] <= 2e-2,
+          "serve_s2d: an s2d route vs the native route")
+    del outs, x
+    torch.cuda.empty_cache()
+    for route in ("xla_s2d", "k5"):
+        names = s2d_k1_names(cfg, levels, route)
+        check(len(names) == len(k1_calls[route]), f"serve_s2d: {route} made "
+              f"{len(k1_calls[route])} K1 calls, expected {names}")
+        kernel_phase([dict(c, name=n) for n, c in zip(names, k1_calls[route])],
+                     phase=f"s2d_kernel_k1_{route}")
+
+    # ---- the s2d serving path: run_eval_pass on the K5 route ----
+    def k5_cfg(mode="fused"):
+        return Config(model=cfg, data=DataConfig(adopted_datasets=tasks),
+                      train=TrainConfig(batch_size_eval=8),
+                      eval=EvalConfig(s2d=True, pallas_conv=True, predictor=mode))
+
+    ecfg = k5_cfg()
+    store = synthetic_store(tasks, volumes_per_task=2, seed=SEED + 42)  # 32x128x128 each
+    predictor = TiledPredictor(ecfg)
+    reset_counts()
+    t1 = time.perf_counter()
+    log, _ = run_eval_pass(ecfg, state, store, predictor, "test")
+    torch.cuda.synchronize()
+    eval_counts = kernel_counts()
+    eval_s = time.perf_counter() - t1
+    batches = len(store)  # one patch per volume, one batch of 8 per volume
+    emit({"phase": "serve_s2d_eval", "seconds": eval_s, "volumes": len(store),
+          "test_mse": log["metric_test/MSE"], "test_r2": log["metric_test/R2"],
+          "launches": {k: eval_counts[k] for k in ("conv3d_same", "conv3d_dpad")},
+          "expected_launches": {k: v * batches for k, v in expected["k5"].items()}})
+    check(all(v == v and abs(v) != float("inf") for v in log.values()),
+          "serve_s2d: non-finite metric")
+    check(eval_counts["conv3d_dpad"] == k5_per_batch * batches,
+          f"serve_s2d: run_eval_pass launched K5 {eval_counts['conv3d_dpad']} times")
+    check(eval_counts["conv3d_same"] == expected["k5"]["conv3d_same"] * batches,
+          f"serve_s2d: run_eval_pass launched K1 {eval_counts['conv3d_same']} times")
+
+    # ---- the tiled predictor on a 32x256x256 volume, four ways ----
+    vol = torch.randn((32, 256, 256), generator=torch.Generator().manual_seed(SEED + 3))
+    runs = {"k5_fused": (k5_cfg(), plain2), "k5_two_phase": (k5_cfg("two_phase"), plain2),
+            "xla_s2d_fused": (ecfg.replace(eval=EvalConfig(s2d=True)), plain2),
+            "native_fused": (ecfg.replace(eval=EvalConfig(s2d=False)), plain)}
+    preds, results = {}, {}
+    for name, (pcfg, params) in runs.items():
+        pred = TiledPredictor(pcfg)
+        check(pred.num_patches(vol.shape) == 9, "serve_s2d: expected 9 patches")
+        pred(params, vol)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            preds[name] = pred(params, vol)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        secs = sorted(times)[1]
+        prof = device_breakdown(lambda: pred(params, vol))[0]
+        results[name] = {"seconds_median_of_3": secs, "seconds_all": times,
+                         "mvox_per_s": vol.numel() / secs / 1e6, **prof}
+    same = torch.equal(preds["k5_fused"], preds["k5_two_phase"])
+    rel_vol = {k: rel_l2(v, preds["native_fused"]) for k, v in preds.items() if k != "native_fused"}
+    emit({"phase": "serve_s2d_predictor", "volume": [32, 256, 256], "patches": 9, "batches": 2,
+          "runs": results, "two_phase_equals_fused": same,
+          "max_abs_two_phase_vs_fused": float((preds["k5_fused"] - preds["k5_two_phase"]).abs().max()),
+          "rel_l2_vs_native": rel_vol, "seconds": time.perf_counter() - t0})
+    check(all(bool(torch.isfinite(y).all()) and y.shape == vol.shape for y in preds.values()),
+          "serve_s2d: bad prediction")
+    check(same, "serve_s2d: two_phase differs from fused")
+    check(max(rel_vol.values()) <= 2e-2, f"serve_s2d: a route's volume vs native {rel_vol}")
+    return eval_counts
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -749,7 +1036,9 @@ def main(argv=None):
                   "train_kernel": lambda: train_kernel_phase(convs),
                   "train": lambda: train_phase(len(convs)),
                   "train_step": lambda: train_step_phase(convs, num_tasks=4),
-                  "train_check": lambda: train_check_phase(num_tasks=4)}
+                  "train_check": lambda: train_check_phase(num_tasks=4),
+                  "s2d_kernel": lambda: s2d_kernel_phase(cfg),
+                  "serve_s2d": lambda: serve_s2d_phase(cfg)}
         for name in only:
             phases[name]()
             torch.cuda.empty_cache()
@@ -762,6 +1051,11 @@ def main(argv=None):
     model_phase(cfg, len(DEFAULT_DATASETS))
     torch.cuda.empty_cache()
     serve_launches = serve_phase(cfg, len(convs))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s2d_totals = s2d_kernel_phase(cfg)
+    emit({"phase": "s2d_kernel_done", "seconds": time.perf_counter() - t0})
+    s2d_counts = serve_s2d_phase(cfg)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -792,6 +1086,8 @@ def main(argv=None):
         entry("conv3d_dw_persample", "conv3d_dw_persample.cu",
               "repmode_tpu/ops/pallas/conv3d.py:553", train_counts["conv3d_dw_persample"],
               train_totals["conv3d_dw_persample"]),
+        entry("conv3d_dpad", "conv3d_dpad.cu", "repmode_tpu/ops/pallas/conv3d.py:242",
+              s2d_counts["conv3d_dpad"], s2d_totals),
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

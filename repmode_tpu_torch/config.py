@@ -2,11 +2,13 @@
 
 The port's own copy of ``repmode_tpu.config`` (the two packages share no
 module). Field names and defaults are the JAX package's, so a config written
-by one reads in the other through the JSON round trip. Fields that select
-TPU-only execution (``ModelConfig.train_s2d``, ``EvalConfig.s2d``,
-``EvalConfig.pallas_conv``) are kept for that round trip; the port's
-entry points run the native NDHWC layout and say so when such a field asks
-for another.
+by one reads in the other through the JSON round trip. ``EvalConfig.s2d``,
+``EvalConfig.pallas_conv`` and ``EvalConfig.predictor`` select the serving
+route and the predictor mode (``models/reparam.make_inference``,
+``infer/predict.TiledPredictor``), with the JAX package's defaults (the
+space-to-depth route, which the port's CLI turns off: ``cli/args.py``).
+``ModelConfig.train_s2d`` is kept for the round trip only: the port trains
+in the native NDHWC layout.
 """
 
 from __future__ import annotations
@@ -81,7 +83,8 @@ class EvalConfig:
     gaussian_sigma_scale: float = 1 / 8
     save_test_preds: bool = False
     save_test_signals_and_targets: bool = False
-    # space-to-depth layout of the JAX package; the port runs native NDHWC
+    # space-to-depth serving route (models/reparam.plain_forward_s2d), and with
+    # pallas_conv its depth-padded K5 chain (plain_forward_s2d_pallas)
     s2d: bool = True
     predictor: str = "fused"
     pallas_conv: bool = False

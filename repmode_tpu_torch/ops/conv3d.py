@@ -1,6 +1,6 @@
 """3-D conv primitives on NDHWC activations and DHWIO kernels.
 
-Three wrappers port the TPU kernels of ``repmode_tpu/ops/pallas/conv3d.py``.
+Four wrappers port the TPU kernels of ``repmode_tpu/ops/pallas/conv3d.py``.
 On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
 runs its plain PyTorch version, which defines the same arithmetic (inputs
 rounded to the compute dtype, sums in fp32, fp64 stays fp64):
@@ -12,13 +12,17 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          merged MoDE conv) reading the forward kernels
                          (``csrc/conv3d_persample.cu``);
   conv3d_dw_persample    K4, ``pallas_conv3d_dw_persample``: the per-sample
-                         weight gradient (``csrc/conv3d_dw_persample.cu``).
+                         weight gradient (``csrc/conv3d_dw_persample.cu``);
+  conv3d_dpad            K5, ``pallas_conv3d_dpad``: the chainable conv of
+                         the space-to-depth serving levels on depth-padded
+                         tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``).
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
 (and ``conv3d_same_persample.transpose_launches`` those of K3).
 
 The k=2, s=2 down/upsample convs have non-overlapping windows, so they are
-reshapes around one matrix product, as in the JAX package.
+reshapes around one matrix product, as in the JAX package; so is the
+tap-major ``conv3d_same_tapmajor`` of the s2d ``conv_out``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,11 @@ def _round(t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tenso
     if compute_dtype is not None:
         t = t.to(compute_dtype)
     return t.to(_acc_dtype(t.dtype))
+
+
+def _acc_or_compute(x: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x in the compute dtype, or, in exact mode, in the accumulation dtype."""
+    return x.to(compute_dtype) if compute_dtype is not None else x.to(_acc_dtype(x.dtype))
 
 
 def conv3d_same_plain(
@@ -463,6 +472,151 @@ def _dw_unpack(out: torch.Tensor, ci: int, co: int, kw: int) -> torch.Tensor:
     n, kd, kh, kw_k = out.shape[:4]
     out = out[..., :(kw // kw_k) * ci, :co]
     return out.reshape(n, kd, kh, kw, ci, co).contiguous()
+
+
+# ------------------------------------------ D-padded chain kernel (K5)
+
+
+def conv3d_dpad_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    relu: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``conv3d_dpad``: the kernel's function in PyTorch ops.
+
+    x: (N, D+kD-1, H, W, Ci) with (kD-1)/2 zero halo rows at each depth
+    edge; w: (kD,kH,kW,Ci,Co) with odd taps; bias (Co,). The depth halo is
+    physical, so the conv is VALID in D over the padded rows and 'same' in H
+    and W. Returns act(conv + bias) as (N, D+kD-1, H, W, Co) with the halo
+    rows written as zeros, in ``out_dtype`` (default: the accumulation
+    dtype, fp32 or fp64).
+    """
+    kd, kh, kw = w.shape[:3]
+    pd = (kd - 1) // 2
+    xr = _round(x, compute_dtype)
+    wr = _round(w, compute_dtype).to(xr.dtype)
+    y = F.conv3d(
+        xr.permute(0, 4, 1, 2, 3),
+        wr.permute(4, 3, 0, 1, 2),
+        padding=(0, (kh - 1) // 2, (kw - 1) // 2),
+    ).permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if relu:
+        y = torch.relu(y)
+    return F.pad(y, (0, 0, 0, 0, 0, 0, pd, pd)).to(out_dtype or y.dtype).contiguous()
+
+
+def conv3d_dpad(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    relu: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Chainable 'same' conv on depth-padded tensors (K5), output in the
+    compute dtype (x's dtype when None) with its depth halo rows zero.
+
+    See ``conv3d_dpad_plain`` for the function. On a CUDA tensor: one launch
+    of the bf16 tensor-core kernel on the current stream. It takes what the
+    s2d levels of the serving net give it, and raises on anything else: x
+    contiguous bf16 NDHWC (``compute_dtype`` bf16 or None), taps (kD,3,3)
+    with kD in {3,5}, Ci and Co multiples of 128. It writes the halo rows
+    itself and makes no padded copy of x. It has no backward: with grad
+    enabled and an input that requires grad it raises. On a CPU tensor: the
+    plain version. ``conv3d_dpad.launches`` counts kernel launches.
+    """
+    if x.device.type == "cpu":
+        odt = compute_dtype or x.dtype
+        return conv3d_dpad_plain(x, w, bias, relu=relu, compute_dtype=compute_dtype,
+                                 out_dtype=odt)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_dpad: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias)
+    ):
+        raise RuntimeError(
+            "conv3d_dpad: the CUDA kernel has no backward, and an input requires grad; "
+            "run this conv under torch.no_grad()"
+        )
+    y = _conv3d_dpad_cuda(x, w, bias, relu, compute_dtype)
+    conv3d_dpad.launches += 1
+    return y
+
+
+conv3d_dpad.launches = 0
+
+
+def _conv3d_dpad_cuda(x, w, bias, relu, compute_dtype) -> torch.Tensor:
+    name = "conv3d_dpad"
+    if x.dim() != 5 or w.dim() != 5:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} must be 5-D")
+    n, dp, h, wl, ci = x.shape
+    kd, kh, kw, wci, co = w.shape
+    if kd not in (3, 5) or kh != 3 or kw != 3 or wci != ci:
+        raise ValueError(f"{name}: w {tuple(w.shape)} must have taps (3|5, 3, 3) and Ci={ci}")
+    if ci % 128 or co % 128:
+        raise ValueError(f"{name}: Ci={ci} and Co={co} must be multiples of 128")
+    if dp <= kd - 1:
+        raise ValueError(f"{name}: padded depth {dp} leaves no interior row for kD={kd}")
+    if compute_dtype not in (None, torch.bfloat16) or x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel takes bfloat16 x and computes in "
+                         f"bfloat16, got x {x.dtype}, compute_dtype {compute_dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be contiguous NDHWC with a 16-byte aligned start")
+    for nm, t in (("w", w), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: {nm} on {t.device}, x on {x.device}")
+    if bias is not None and tuple(bias.shape) != (co,):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} must be ({co},)")
+    wb = _aligned(w.to(torch.bfloat16))
+    bf = None if bias is None else _aligned(bias.to(torch.float32))
+    y = torch.empty((n, dp, h, wl, co), dtype=torch.bfloat16, device=x.device)
+    lib = build.load(name)
+    err = lib.conv3d_dpad_bf16(
+        x.data_ptr(), wb.data_ptr(), None if bf is None else bf.data_ptr(), y.data_ptr(),
+        n, dp, h, wl, ci, co, kd, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.conv3d_dpad_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"w {tuple(w.shape)}")
+    return y
+
+
+def conv3d_same_tapmajor(
+    x: torch.Tensor, w: torch.Tensor, *, compute_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """'same' conv for a small output channel count, tap-major (the s2d
+    ``conv_out``, Co=4; the JAX package's XLA formulation, no kernel):
+
+        z[p, t*Co+o] = sum_i x[p, i] * w[t, i, o]      (one matmul, N = T*Co)
+        y[p, o]      = sum_t z[p + offset_t, t*Co+o]   (T shifted adds)
+
+    z is in the compute dtype when one is given (fp32 or wider in exact
+    mode); the shifted adds and the output are fp32 (fp64 stays fp64).
+    """
+    kd, kh, kw, ci, co = w.shape
+    n, d, h, wl, _ = x.shape
+    t = kd * kh * kw
+    xc = _acc_or_compute(x, compute_dtype)
+    w2 = w.reshape(t, ci, co).permute(1, 0, 2).reshape(ci, t * co)
+    z = torch.matmul(xc, w2.to(xc.dtype))
+    zp = F.pad(z, (0, 0, (kw - 1) // 2, (kw - 1) // 2, (kh - 1) // 2, (kh - 1) // 2,
+                   (kd - 1) // 2, (kd - 1) // 2))
+    y = torch.zeros((n, d, h, wl, co), dtype=_acc_dtype(z.dtype), device=x.device)
+    ti = 0
+    for dz in range(kd):
+        for dy in range(kh):
+            for dx in range(kw):
+                y += zp[:, dz:dz + d, dy:dy + h, dx:dx + wl, ti * co:(ti + 1) * co]
+                ti += 1
+    return y
 
 
 def downsample2x_conv(

@@ -30,6 +30,7 @@ SOURCES: Dict[str, str] = {
     "conv3d_same": "conv3d_same.cu",
     "conv3d_persample": "conv3d_persample.cu",
     "conv3d_dw_persample": "conv3d_dw_persample.cu",
+    "conv3d_dpad": "conv3d_dpad.cu",
 }
 
 NVCC_FLAGS = (
@@ -126,6 +127,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_dw_persample_splits.restype = i32
         lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
         lib.conv3d_dw_persample_bf16.restype = i32
+    elif name == "conv3d_dpad":
+        lib.conv3d_dpad_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+        lib.conv3d_dpad_bf16.restype = i32
     else:
         raise KeyError(f"no C interface declared for kernel {name!r}")
     err_fn = getattr(lib, f"{name}_error_string")

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 (``conv3d_same``), K2 and K3 (``conv3d_same_persample``, forward and
-``transpose_taps``) and K4 (``conv3d_dw_persample``), and the training path
-through K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
+``transpose_taps``), K4 (``conv3d_dw_persample``) and K5 (``conv3d_dpad``),
+the training path through K2-K4 and the space-to-depth serving routes
+through K1 and K5. Every test needs a CUDA card (the kernels have no CPU mode) and
 skips without one. On the card, run this file without the JAX package's
 conftest:
 
@@ -20,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from repmode_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from repmode_tpu_torch.config import Config, DataConfig, EvalConfig, ModelConfig, TrainConfig
+from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.reparam import plain_forward, reparameterize
 from repmode_tpu_torch.models.repmode import RepModeNet
 from repmode_tpu_torch.ops.conv3d import (
+    conv3d_dpad,
+    conv3d_dpad_plain,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
     conv3d_same,
@@ -73,6 +77,7 @@ CASES = [
     (1, 2, 2, 200, 8, 100, (1, 1, 1)),
     (2, 2, 8, 8, 64, 64, (5, 5, 5)),
     (1, 1, 9, 16, 40, 16, (1, 3, 3)),
+    (2, 4, 8, 16, 128, 128, (5, 3, 3)),  # the s2d routes' level-1 taps and width
 ]
 
 
@@ -222,3 +227,122 @@ def test_train_step_runs_through_the_per_sample_kernels(cuda):
     assert torch.isfinite(m["loss"]) and int(m["per_task_count"].sum()) == 2
     for name, p in state.net.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+# ---------------------------------------------- the depth-padded chain K5
+
+# (N, D, H, W, Ci, Co, kD, epilogue): W below 64, above 128 with a partial
+# tile, H not a multiple of a tile's rows, Co tiles > 1, kD 3 and 5, and the
+# full-width decoder_block1.conv1 shape (batch 2 keeps the fp64 check cheap).
+DPAD_CASES = [
+    (1, 2, 4, 8, 128, 128, 3, "bias_relu"),
+    (2, 3, 6, 20, 128, 256, 5, "bias"),
+    (1, 1, 9, 130, 256, 128, 5, "none"),
+    (2, 4, 5, 48, 384, 128, 3, "bias_relu"),
+    (2, 32, 64, 64, 256, 128, 5, "bias_relu"),
+]
+
+
+def dpad_operands(case, cuda):
+    n, d, h, w, ci, co, kd, epilogue = case
+    pd = (kd - 1) // 2
+    g = torch.Generator().manual_seed(hash(case) % 2**31)
+    x = torch.zeros((n, d + 2 * pd, h, w, ci), dtype=torch.bfloat16)
+    x[:, pd:pd + d] = torch.randn((n, d, h, w, ci), generator=g).to(torch.bfloat16)
+    wk = (torch.randn((kd, 3, 3, ci, co), generator=g) / (kd * 9 * ci) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=g) if epilogue != "none" else None
+    return x.to(cuda), wk.to(cuda), None if b is None else b.to(cuda), epilogue == "bias_relu", pd
+
+
+@pytest.mark.parametrize("case", DPAD_CASES)
+def test_dpad_kernel_matches_plain(cuda, case):
+    x, wk, b, relu, pd = dpad_operands(case, cuda)
+    before = conv3d_dpad.launches
+    y = conv3d_dpad(x, wk, b, relu=relu)
+    torch.cuda.synchronize()
+    assert conv3d_dpad.launches == before + 1
+    ref = conv3d_dpad_plain(x.double(), wk.double(), None if b is None else b.double(), relu=relu)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert bool((y[:, :pd] == 0).all()) and bool((y[:, -pd:] == 0).all())
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+def test_dpad_kernel_chain_reads_its_own_halo(cuda):
+    """The second conv reads the first's output, halo rows included, as it
+    stands; each is held against the plain version on its own input."""
+    x, wk, b, _, pd = dpad_operands((2, 4, 8, 16, 128, 128, 5, "bias_relu"), cuda)
+    y1 = conv3d_dpad(x, wk, b, relu=True)
+    y2 = conv3d_dpad(y1, wk, b, relu=True)
+    for y, inp in ((y1, x), (y2, y1)):
+        ref = conv3d_dpad_plain(inp.double(), wk.double(), b.double(), relu=True)
+        assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+    assert bool((y2[:, :pd] == 0).all()) and bool((y2[:, -pd:] == 0).all())
+
+
+def test_dpad_kernel_refuses_autograd(cuda):
+    x, wk, b, _, _ = dpad_operands(DPAD_CASES[0], cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv3d_dpad(x, wk.requires_grad_(), b, relu=True)
+
+
+@pytest.mark.parametrize("bad", ["ci_64", "kh_5", "fp32_x"])
+def test_dpad_kernel_refuses_other_geometry(cuda, bad):
+    """On the card the wrapper raises, and never runs the plain version."""
+    x, wk, b, _, _ = dpad_operands(DPAD_CASES[0], cuda)
+    if bad == "ci_64":
+        x, wk = x[..., :64].contiguous(), wk[:, :, :, :64].contiguous()
+    elif bad == "kh_5":
+        wk = torch.zeros((3, 5, 3, 128, 128), dtype=torch.bfloat16, device=cuda)
+    else:
+        x = x.float()
+    before = conv3d_dpad.launches
+    with pytest.raises(ValueError):
+        conv3d_dpad(x, wk, b, relu=True)
+    assert conv3d_dpad.launches == before
+
+
+def s2d_net(cuda):
+    cfg = ModelConfig(mult_chan=32, depth=2)
+    net = RepModeNet(cfg, 2, generator=torch.Generator().manual_seed(7), device=cuda).eval()
+    g = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_((torch.rand(buf.shape, generator=g) - 0.5) * 0.1)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=g) * 0.3 + 0.3)
+    return cfg, net.state_dict()
+
+
+def test_s2d_routes_on_the_card(cuda, monkeypatch):
+    """The K5 route against the XLA s2d route (both through the kernels) and
+    against itself with the plain versions patched in; K5 runs 7 times."""
+    cfg, state = s2d_net(cuda)
+    levels = reparam.default_s2d_levels(cfg)
+    plain2 = reparam.to_s2d_plain(reparameterize(state, cfg, 2, 1), cfg, levels)
+    x = torch.randn((2, 16, 32, 32, 1), generator=torch.Generator().manual_seed(9)).to(cuda)
+    bf = torch.bfloat16
+    before = (conv3d_same.launches, conv3d_dpad.launches)
+    y = reparam.plain_forward_s2d_pallas(plain2, x, cfg, levels, compute_dtype=bf)
+    assert (conv3d_same.launches - before[0], conv3d_dpad.launches - before[1]) == (4, 7)
+    y_xla = reparam.plain_forward_s2d(plain2, x, cfg, levels, compute_dtype=bf)
+    monkeypatch.setattr(reparam, "conv3d_same", conv3d_same_plain)
+    monkeypatch.setattr(reparam, "conv3d_dpad", conv3d_dpad_plain)
+    ref = reparam.plain_forward_s2d_pallas(plain2, x, cfg, levels, compute_dtype=bf)
+    for other in (y_xla, ref):
+        rel = ((y - other).norm() / other.norm()).item()
+        assert torch.isfinite(y).all() and rel <= 1e-2, rel
+
+
+def test_two_phase_equals_fused_on_the_card(cuda):
+    cfg, state = s2d_net(cuda)
+    kw = dict(s2d=True, pallas_conv=True, patch_size=(16, 32, 32))
+    c = Config(model=cfg, data=DataConfig(adopted_datasets=("dna", "lamin_b1")),
+               train=TrainConfig(batch_size_eval=2), eval=EvalConfig(**kw))
+    plain = reparam.make_inference(c)[0](state, 0)
+    vol = torch.randn((16, 48, 48), generator=torch.Generator().manual_seed(10))
+    before = conv3d_dpad.launches
+    fused = TiledPredictor(c)(plain, vol)
+    assert conv3d_dpad.launches > before
+    two = TiledPredictor(c, mode="two_phase")(plain, vol)
+    assert torch.isfinite(fused).all() and torch.equal(fused, two)

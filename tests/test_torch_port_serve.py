@@ -26,7 +26,7 @@ from repmode_tpu_torch.config import Config, DataConfig, EvalConfig, ModelConfig
 from repmode_tpu_torch.data.store import VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
-from repmode_tpu_torch.models.reparam import make_inference, reparameterize
+from repmode_tpu_torch.models.reparam import make_inference, plain_forward_s2d, reparameterize
 from repmode_tpu_torch.models.repmode import RepModeNet
 
 torch.set_num_threads(2)
@@ -83,8 +83,18 @@ def test_predictor_without_cuda_or_cpu_request_raises(monkeypatch):
 
 
 def test_make_inference_refuses_s2d():
-    with pytest.raises(NotImplementedError, match="s2d"):
-        make_inference(Config())
+    """make_inference no longer refuses s2d: the default Config (eval.s2d=True,
+    the JAX package's default) takes the space-to-depth route, and prepare
+    emits s2d-shaped params."""
+    cfg = Config(model=ModelConfig(mult_chan=2, depth=2), data=DataConfig(adopted_datasets=TASKS))
+    assert cfg.eval.s2d
+    prepare, forward = make_inference(cfg)
+    assert forward.func is plain_forward_s2d and forward.keywords["s2d_levels"] == (1, 2)
+    net = RepModeNet(cfg.model, len(TASKS), generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    plain = prepare(net.state_dict(), 0)
+    assert plain["encoder_block1"]["conv1_w"].shape == (5, 3, 3, 4, 8)
+    assert plain["conv_out_w"].shape == (5, 3, 3, 8, 4)
 
 
 # ------------------------------------------------------- config and data
