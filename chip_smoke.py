@@ -37,7 +37,21 @@ kernels):
                 each other, with their launch counts; run_eval_pass on the K5
                 route (the s2d serving path: K5's launch count is read from
                 this run); the tiled predictor on a 32x256x256 volume, fused
-                and two_phase (equal), beside the other two routes.
+                and two_phase (equal), beside the other two routes;
+  train_s2d_kernel  K6 (the tap-concat s2d entry conv) at its training shape,
+                held against its plain version in fp64 and timed beside it, a
+                cuDNN yardstick, K2 on the same conv and its bound; K2, K3 and
+                K4 at every per-sample conv shape of the s2d train step;
+  train_s2d     run_experiment with the default ModelConfig (train_s2d, the JAX
+                package's default) on synthetic data (the s2d training path:
+                K6 and K2-K4 launch counts are read from this run);
+  train_s2d_step  the s2d train step's time beside the native one's (one pair,
+                interleaved), its device profile and peak memory;
+  train_s2d_check  one bf16 step of the s2d route against the native route on
+                the same weights and batch.
+
+The phases before train_s2d_kernel build their nets with train_s2d=False:
+they hold the native layout, as they did before the s2d training path.
 
 One JSON object per line; a failed check raises, so the script exits
 non-zero and prints no result. It also fails without a CUDA card, and when
@@ -47,6 +61,7 @@ the repmode_tpu_torch package is not beside it. The last line is
 
 import argparse
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -77,9 +92,11 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_same_persample_plain,
     conv3d_same_plain,
+    conv3d_tapconcat_persample,
+    conv3d_tapconcat_persample_plain,
 )
 from repmode_tpu_torch.ops.kernels import build
-from repmode_tpu_torch.train.loop import run_eval_pass
+from repmode_tpu_torch.train.loop import run_eval_pass, run_experiment
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
 
@@ -168,6 +185,17 @@ def device_breakdown(fn, top=6):
             "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name),
             "conv3d_dpad_ms": sum(ms for name, ms in kernels if "conv3d_dpad_kernel" in name),
             }, kernels
+
+
+def per_sample_kernel_ms(kernels):
+    """Device ms of K2, K3, K4 and K6 in a profile's kernel list."""
+    def ms_of(pred):
+        return sum(ms for name, ms in kernels if pred(name))
+
+    return {"k2_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "false>" in nm),
+            "k3_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "true>" in nm),
+            "k4_ms": ms_of(lambda nm: "conv3d_dw_kernel" in nm or "sum_partials_kernel" in nm),
+            "k6_ms": ms_of(lambda nm: "conv3d_tapconcat_kernel" in nm)}
 
 
 def build_phase():
@@ -428,31 +456,37 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def train_kernel_phase(convs):
-    """K2, K3 and K4 at each distinct MoDE conv shape of training at batch 8:
-    each against its plain version in fp64 on samples 0 and 7, then timed
-    beside its plain version (fp32, TF32 off), a cuDNN yardstick the port does
-    not call, and its bound. Returns per-kernel totals over one train step."""
+def train_kernel_phase(convs, phase="train_kernel"):
+    """K2, K3 and K4 at each distinct per-sample conv shape of training at
+    batch 8: each against its plain version in fp64 on samples 0 and 7, then
+    timed beside its plain version (fp32, TF32 off), a cuDNN yardstick the
+    port does not call, and its bound. A conv's taps are (5,5,5) unless it
+    names others; K2 runs unless it says ``k2=False`` (K6 takes the s2d entry
+    conv), K3 for every conv but encoder_block1.conv1, whose input is data.
+    Returns per-kernel totals over one train step."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     bf = torch.bfloat16
     distinct = {}
     for cv in convs:
-        key = (cv["x"], cv["co"])
-        distinct.setdefault(key, dict(cv, names=[]))
+        key = (cv["x"], cv["co"], cv.get("taps", (5, 5, 5)))
+        distinct.setdefault(key, dict(cv, names=[], k2_count=0))
         distinct[key]["names"].append(cv["name"])
+        distinct[key]["k2_count"] += cv.get("k2", True)
     names = ("conv3d_same_persample", "conv3d_same_persample_T", "conv3d_dw_persample")
     totals = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                       bytes_ms=0.0, max_abs_err=0.0, convs=0) for k in names}
     for cv in distinct.values():
         n, d, h, w, ci = cv["x"]
         co, count = cv["co"], len(cv["names"])
-        # K3 (dx) runs for every conv but encoder_block1.conv1, whose input is data
+        taps = cv.get("taps", (5, 5, 5))
+        ntaps = taps[0] * taps[1] * taps[2]
+        pads = tuple(k // 2 for k in taps)
         count_dx = sum(nm != "encoder_block1.conv1" for nm in cv["names"])
         p = d * h * w
         x = torch.randn(cv["x"], generator=gen, device=dev).to(bf)
-        wk = (torch.randn((n, 5, 5, 5, ci, co), generator=gen, device=dev)
-              / (125 * ci) ** 0.5).to(bf)
+        wk = (torch.randn((n, *taps, ci, co), generator=gen, device=dev)
+              / (ntaps * ci) ** 0.5).to(bf)
         dy = torch.randn((n, d, h, w, co), generator=gen, device=dev).to(bf)
         idx = CHECKED_SAMPLES
         # cuDNN yardsticks: grouped convs on channels_last_3d copies made here
@@ -460,19 +494,19 @@ def train_kernel_phase(convs):
             memory_format=torch.channels_last_3d)
         dyl = dy.permute(0, 4, 1, 2, 3).reshape(1, n * co, d, h, w).contiguous(
             memory_format=torch.channels_last_3d)
-        wl = wk.permute(0, 5, 4, 1, 2, 3).reshape(n * co, ci, 5, 5, 5).contiguous(
+        wl = wk.permute(0, 5, 4, 1, 2, 3).reshape(n * co, ci, *taps).contiguous(
             memory_format=torch.channels_last_3d)
-        wtl = wk.flip((1, 2, 3)).permute(0, 4, 5, 1, 2, 3).reshape(n * ci, co, 5, 5, 5).contiguous(
+        wtl = wk.flip((1, 2, 3)).permute(0, 4, 5, 1, 2, 3).reshape(n * ci, co, *taps).contiguous(
             memory_format=torch.channels_last_3d)
-        flops = 2.0 * n * p * 125 * ci * co
-        wbytes = n * 125 * ci * co
+        flops = 2.0 * n * p * ntaps * ci * co
+        wbytes = n * ntaps * ci * co
         runs = {
             "conv3d_same_persample": dict(
-                count=count, fp32_out=False,
+                count=cv["k2_count"], fp32_out=False,
                 kernel=lambda: conv3d_same_persample(x, wk, compute_dtype=bf),
                 plain=lambda: conv3d_same_persample_plain(x, wk, compute_dtype=bf),
                 ref=lambda: conv3d_same_persample_plain(x[idx].double(), wk[idx].double()),
-                library=lambda: F.conv3d(xl, wl, padding=2, groups=n),
+                library=lambda: F.conv3d(xl, wl, padding=pads, groups=n),
                 library_call="F.conv3d grouped (groups=N), bf16, channels_last_3d",
                 nbytes=x.numel() * 2 + wbytes * 2 + n * p * co * 2),
             "conv3d_same_persample_T": dict(
@@ -483,18 +517,17 @@ def train_kernel_phase(convs):
                                                           compute_dtype=bf),
                 ref=lambda: conv3d_same_persample_plain(dy[idx].double(), wk[idx].double(),
                                                         transpose_taps=True),
-                library=lambda: F.conv3d(dyl, wtl, padding=2, groups=n),
+                library=lambda: F.conv3d(dyl, wtl, padding=pads, groups=n),
                 library_call="F.conv3d grouped on a flipped, io-swapped copy of w (copy "
                              "made outside the timing), bf16, channels_last_3d",
                 nbytes=dy.numel() * 2 + wbytes * 2 + n * p * ci * 2),
             "conv3d_dw_persample": dict(
                 count=count, fp32_out=True,
-                kernel=lambda: conv3d_dw_persample(x, dy, 5, 5, 5, compute_dtype=bf),
-                plain=lambda: conv3d_dw_persample_plain(x, dy, 5, 5, 5, compute_dtype=bf),
-                ref=lambda: conv3d_dw_persample_plain(x[idx].double(), dy[idx].double(),
-                                                      5, 5, 5),
+                kernel=lambda: conv3d_dw_persample(x, dy, *taps, compute_dtype=bf),
+                plain=lambda: conv3d_dw_persample_plain(x, dy, *taps, compute_dtype=bf),
+                ref=lambda: conv3d_dw_persample_plain(x[idx].double(), dy[idx].double(), *taps),
                 library=lambda: torch.nn.grad.conv3d_weight(
-                    xl, (n * co, ci, 5, 5, 5), dyl, padding=2, groups=n),
+                    xl, (n * co, ci, *taps), dyl, padding=pads, groups=n),
                 library_call="torch.nn.grad.conv3d_weight grouped (groups=N), bf16, "
                              "channels_last_3d",
                 nbytes=x.numel() * 2 + dy.numel() * 2 + wbytes * 4),
@@ -510,8 +543,9 @@ def train_kernel_phase(convs):
             plain_ms = cuda_ms(r["plain"], reps=3, warmup=1)
             library_ms = cuda_ms(r["library"], reps=5, warmup=1)
             bound_ms, bound_by = bound(flops, r["nbytes"])
-            emit({"phase": "train_kernel", "kernel": name, "convs": cv["names"],
+            emit({"phase": phase, "kernel": name, "convs": cv["names"],
                   "launches_per_step": r["count"], "x": list(cv["x"]), "co": co,
+                  "taps": list(taps),
                   "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "library_call": r["library_call"], "bound_ms": bound_ms, "bound_by": bound_by,
                   "tflops": flops / kernel_ms / 1e9, "max_abs_err": max_abs, "max_abs_ref": top,
@@ -529,7 +563,7 @@ def train_kernel_phase(convs):
         del x, wk, dy, xl, dyl, wl, wtl, runs
         torch.cuda.empty_cache()
     for name, t in totals.items():
-        emit({"phase": "train_kernel", "kernel": name, "per_step_of": 8, **t})
+        emit({"phase": phase, "kernel": name, "per_step_of": 8, **t})
     return totals
 
 
@@ -538,12 +572,75 @@ def kernel_counts():
             "conv3d_same_persample": conv3d_same_persample.launches,
             "conv3d_same_persample_transpose": conv3d_same_persample.transpose_launches,
             "conv3d_dw_persample": conv3d_dw_persample.launches,
-            "conv3d_dpad": conv3d_dpad.launches}
+            "conv3d_dpad": conv3d_dpad.launches,
+            "conv3d_tapconcat_persample": conv3d_tapconcat_persample.launches}
 
 
 def reset_counts():
     conv3d_same.launches = conv3d_dw_persample.launches = conv3d_dpad.launches = 0
     conv3d_same_persample.launches = conv3d_same_persample.transpose_launches = 0
+    conv3d_tapconcat_persample.launches = 0
+
+
+def param_report(net, init):
+    """The parameters of a trained net that lack a gradient, have a
+    non-finite one, or equal their initial value in ``init``."""
+    params = dict(net.named_parameters())
+    return {"params_without_grad": [k for k, v in params.items() if v.grad is None],
+            "params_nonfinite_grad": [k for k, v in params.items() if v.grad is not None
+                                      and not bool(torch.isfinite(v.grad).all())],
+            "params_unchanged": [k for k, v in init.named_parameters()
+                                 if torch.equal(v, params[k])]}
+
+
+def check_params(phase, report):
+    check(not report["params_without_grad"] and not report["params_nonfinite_grad"],
+          f"{phase}: a parameter lacks a finite gradient")
+    check(not report["params_unchanged"], f"{phase}: a parameter did not change")
+
+
+def hold_gradients(phase, losses, grads, a, b, ref, **extra):
+    """Hold route a's loss and gradients to route b's (both bf16): loss rel
+    <= 1e-2, global gradient rel L2 <= 5e-2, and every tensor's gradient
+    direction. Tensors whose two bf16 gradients point apart (cosine < 0.99)
+    are ones whose gradient bf16 rounding does not resolve (near-cancelling
+    sums, e.g. a BN bias ahead of a batch-normalized conv); over those
+    tensors together, a's error against the fp32 gradient of route ``ref``
+    may be at most twice b's."""
+    def cos(u, v):
+        return float((u.flatten() @ v.flatten()) / (u.norm() * v.norm() + 1e-30))
+
+    def rel(u, v):
+        return float((u - v).norm() / (v.norm() + 1e-30))
+
+    def global_rel(u, v):
+        return (sum(float((u[k] - v[k]).norm() ** 2) for k in u)
+                / sum(float(v[k].norm() ** 2) for k in u)) ** 0.5
+
+    ga, gb, g32 = grads[a], grads[b], grads[ref]
+    cos_ab = {k: cos(ga[k], gb[k]) for k in ga}
+    total = sum(float(v.norm() ** 2) for v in g32.values())
+    low = sorted(k for k in ga if cos_ab[k] < 0.99)
+    unresolved = {k: {f"cos_{a}_vs_{b}": cos_ab[k], f"rel_l2_{a}_vs_fp32": rel(ga[k], g32[k]),
+                      f"rel_l2_{b}_vs_fp32": rel(gb[k], g32[k]),
+                      "norm_share_fp32": float(g32[k].norm() ** 2) / total} for k in low}
+    pooled = ({a: global_rel({k: ga[k] for k in low}, {k: g32[k] for k in low}),
+               b: global_rel({k: gb[k] for k in low}, {k: g32[k] for k in low})}
+              if low else None)
+    out = {"phase": phase, "losses": losses, **extra,
+           "loss_rel": abs(losses[a] - losses[b]) / abs(losses[b]),
+           "global_grad_rel_l2": global_rel(ga, gb), "tensors": len(ga),
+           "global_grad_rel_l2_vs_fp32": {a: global_rel(ga, g32), b: global_rel(gb, g32)},
+           "tensors_cosine_below_0.99": unresolved,
+           "below_0.99_pooled_rel_l2_vs_fp32": pooled,
+           "tolerance": f"{a} vs {b}, both bf16: loss rel <= 1e-2, global gradient rel L2 <= "
+                        f"5e-2, per-tensor gradient cosine >= 0.99; over the tensors below 0.99 "
+                        f"together, {a}'s rel L2 to the fp32 {ref} <= 2x {b}'s"}
+    emit(out)
+    check(out["loss_rel"] <= 1e-2, f"{phase}: loss differs")
+    check(out["global_grad_rel_l2"] <= 5e-2, f"{phase}: gradients differ")
+    check(pooled is None or pooled[a] <= 2 * pooled[b],
+          f"{phase}: gradients of {low} differ beyond the bf16 rounding of {b}")
 
 
 def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
@@ -567,11 +664,7 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
         init_cfg = train_cli.to_config(train_cli.build_parser().parse_args(argv))
         init = create_train_state(init_cfg, torch.Generator().manual_seed(init_cfg.train.seed),
                                   "cuda").net
-        params = dict(net.named_parameters())
-        no_grad = [k for k, v in params.items() if v.grad is None]
-        bad_grad = [k for k, v in params.items()
-                    if v.grad is not None and not bool(torch.isfinite(v.grad).all())]
-        unchanged = [k for k, v in init.named_parameters() if torch.equal(v, params[k])]
+        report = param_report(net, init)
         csvs = [os.path.join(exp_dir, "metrics", f"{p}_train.csv")
                 for p in ("comp", "spec", "final")]
         # 2 volumes per task in val and in test, one 32x128x128 patch each:
@@ -585,9 +678,7 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
                "k1_launches_val_test": counts["conv3d_same"], "k1_expected": k1_expected,
                "train_loss": res["train_log"]["loss/epoch"],
                "test_mse": res["test_log"]["metric_test/MSE"],
-               "best_path": os.path.basename(res["best_path"] or ""),
-               "params_without_grad": no_grad, "params_nonfinite_grad": bad_grad,
-               "params_unchanged": unchanged}
+               "best_path": os.path.basename(res["best_path"] or ""), **report}
         emit(out)
         check(steps == epochs, f"train: {steps} steps, expected {epochs}")
         check(counts["conv3d_same_persample"] == num_convs * steps, "train: K2 launches != 19/step")
@@ -597,8 +688,7 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
         check(counts["conv3d_same"] == k1_expected, "train: K1 launches in val/test")
         check(abs(out["train_loss"]) < float("inf") and out["train_loss"] == out["train_loss"],
               "train: non-finite loss")
-        check(not no_grad and not bad_grad, "train: a parameter lacks a finite gradient")
-        check(not unchanged, "train: a parameter did not change")
+        check_params("train", report)
         check(res["best_path"] is not None, "train: no best checkpoint")
         check(all(os.path.exists(p) for p in csvs), "train: metric CSVs missing")
     finally:
@@ -618,7 +708,8 @@ def train_step_phase(convs, num_tasks, steps=6):
     """The full-width train step (batch 8, mixed tasks, bf16): its time
     (median over steps after one warm-up), its device profile, and the time
     of the gate-merge einsums (forward and backward) at the 19 conv shapes."""
-    cfg = Config(model=ModelConfig(), data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
+    cfg = Config(model=ModelConfig(train_s2d=False),
+                 data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 21), "cuda")
     step = make_train_step(cfg, state)
     batch = full_width_batch(num_tasks)
@@ -634,9 +725,7 @@ def train_step_phase(convs, num_tasks, steps=6):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof, kernels = device_breakdown(lambda: step(batch), top=10)
     del prof["conv3d_same_ms"], prof["conv3d_dpad_ms"]
-
-    def ms_of(pred):
-        return sum(ms for name, ms in kernels if pred(name))
+    kms = per_sample_kernel_ms(kernels)
 
     # the gate merge of every MoDE conv: einsum forward, then its backward
     # (gradients of the bank and of the gate) from a per-sample dW
@@ -658,11 +747,8 @@ def train_step_phase(convs, num_tasks, steps=6):
     times.sort()
     out = {"phase": "train_step", "batch": 8, "patch": list(PATCH), "tasks": num_tasks,
            "step_ms_median": times[len(times) // 2], "step_ms_all": times,
-           "peak_memory_gb": peak_gb, **prof,
-           "k2_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "false>" in nm),
-           "k3_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "true>" in nm),
-           "k4_ms": ms_of(lambda nm: "conv3d_dw_kernel" in nm or "sum_partials_kernel" in nm),
-           "gate_merge_einsum_ms": merge_ms,
+           "peak_memory_gb": peak_gb, **prof, "k2_ms": kms["k2_ms"], "k3_ms": kms["k3_ms"],
+           "k4_ms": kms["k4_ms"], "gate_merge_einsum_ms": merge_ms,
            "gate_merge_note": "forward einsum + its backward at the 19 conv shapes, fp32, "
                               "timed apart from the step with CUDA events"}
     emit(out)
@@ -676,14 +762,10 @@ def train_check_phase(num_tasks):
     """One full-width forward+backward, batch 8, from the same weights on the
     same batch, three ways: the merged route in bf16 (K2-K4), the expert-sum
     route in bf16 and the expert-sum route in fp32 (both with plain convs: K1
-    has no backward). The merged route is held to the bf16 expert sum: loss,
-    global gradient, and every tensor's gradient direction. Tensors whose two
-    bf16 gradients point apart (cosine < 0.99) are ones whose gradient bf16
-    rounding does not resolve (near-cancelling sums, e.g. a BN bias ahead of
-    a batch-normalized conv); over those tensors together, the merged route's
-    error against the fp32 gradient may be at most twice the bf16 expert
-    sum's."""
-    cfg = Config(model=ModelConfig(), data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
+    has no backward). The merged route is held to the bf16 expert sum by
+    ``hold_gradients``."""
+    cfg = Config(model=ModelConfig(train_s2d=False),
+                 data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
     batch = full_width_batch(num_tasks, seed=SEED + 30)
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 31), "cuda")
     net = state.net
@@ -708,45 +790,9 @@ def train_check_phase(num_tasks):
         del loss
         torch.cuda.empty_cache()
 
-    def cos(a, b):
-        return float((a.flatten() @ b.flatten()) / (a.norm() * b.norm() + 1e-30))
-
-    def rel(a, b):
-        return float((a - b).norm() / (b.norm() + 1e-30))
-
-    def global_rel(a, b):
-        return (sum(float((a[k] - b[k]).norm() ** 2) for k in a)
-                / sum(float(b[k].norm() ** 2) for k in a)) ** 0.5
-
-    ga, gb, g32 = grads["merged"], grads["expert_sum"], grads["expert_sum_fp32"]
-    cos_ab = {k: cos(ga[k], gb[k]) for k in ga}
-    total = sum(float(v.norm() ** 2) for v in g32.values())
-    unresolved = {k: {"cos_merged_vs_expert_sum": cos_ab[k],
-                      "rel_l2_merged_vs_fp32": rel(ga[k], g32[k]),
-                      "rel_l2_expert_sum_vs_fp32": rel(gb[k], g32[k]),
-                      "norm_share_fp32": float(g32[k].norm() ** 2) / total}
-                  for k in sorted(ga) if cos_ab[k] < 0.99}
-    low = sorted(unresolved)
-    pooled = ({"merged": global_rel({k: ga[k] for k in low}, {k: g32[k] for k in low}),
-               "expert_sum": global_rel({k: gb[k] for k in low}, {k: g32[k] for k in low})}
-              if low else None)
-    out = {"phase": "train_check", "losses": losses, "peak_memory_gb": peaks,
-           "loss_rel": abs(losses["merged"] - losses["expert_sum"]) / abs(losses["expert_sum"]),
-           "global_grad_rel_l2": global_rel(ga, gb), "tensors": len(ga),
-           "global_grad_rel_l2_vs_fp32": {"merged": global_rel(ga, g32),
-                                          "expert_sum": global_rel(gb, g32)},
-           "tensors_cosine_below_0.99": unresolved,
-           "below_0.99_pooled_rel_l2_vs_fp32": pooled,
-           "tolerance": "merged vs expert sum, both bf16: loss rel <= 1e-2, global gradient rel "
-                        "L2 <= 5e-2, per-tensor gradient cosine >= 0.99; over the tensors below "
-                        "0.99 together, the merged route's rel L2 to the fp32 expert sum <= 2x "
-                        "the bf16 expert sum's"}
-    emit(out)
-    check(out["loss_rel"] <= 1e-2, "train_check: loss differs")
-    check(out["global_grad_rel_l2"] <= 5e-2, "train_check: gradients differ")
-    check(pooled is None or pooled["merged"] <= 2 * pooled["expert_sum"],
-          f"train_check: gradients of {low} differ beyond the bf16 rounding of the reference")
-    del state, net, grads, ga, gb, g32
+    hold_gradients("train_check", losses, grads, "merged", "expert_sum", "expert_sum_fp32",
+                   peak_memory_gb=peaks)
+    del state, net, grads
     torch.cuda.empty_cache()
 
 # ------------------------------------------------ space-to-depth serving (K5)
@@ -1013,6 +1059,253 @@ def serve_s2d_phase(cfg, tasks=("dna", "lamin_b1")):
     return eval_counts
 
 
+# ------------------------------------------- space-to-depth training (K6)
+
+
+def s2d_train_convs(cfg, patch, batch):
+    """Every per-sample conv of the s2d train step in forward order: name,
+    input shape (N,D,H,W,Ci) in its layout (s2d channels at the s2d levels),
+    Co, taps, and whether K2 runs it (``k2``; K6 takes the 4-lane s2d entry
+    conv). The s2d conv_out runs as tap-major einsums and is not listed."""
+    levels = reparam.default_s2d_levels(cfg)
+    c = cfg.in_channels * cfg.mult_chan
+    chans = [c * 2**i for i in range(cfg.depth + 1)]
+    convs = []
+
+    def add(name, level, ci, co, s2d):
+        d, h, w = (s >> (level - 1) for s in patch)
+        if s2d:
+            convs.append(dict(name=name, x=(batch, d, h // 2, w // 2, 4 * ci), co=4 * co,
+                              taps=(5, 3, 3), k2=4 * ci != 4))
+        else:
+            convs.append(dict(name=name, x=(batch, d, h, w, ci), co=co))
+
+    in_ch = cfg.in_channels
+    for i in range(1, cfg.depth + 1):
+        add(f"encoder_block{i}.conv1", i, in_ch, chans[i - 1], i in levels)
+        add(f"encoder_block{i}.conv2", i, chans[i - 1], chans[i - 1], i in levels)
+        in_ch = chans[i - 1]
+    add("bottle_block.conv1", cfg.depth + 1, chans[-2], chans[-1], False)
+    add("bottle_block.conv2", cfg.depth + 1, chans[-1], chans[-1], False)
+    for i in range(cfg.depth, 0, -1):
+        add(f"decoder_block{i}.conv1", i, 2 * chans[i - 1], chans[i - 1], i in levels)
+        add(f"decoder_block{i}.conv2", i, chans[i - 1], chans[i - 1], i in levels)
+    if 1 not in levels:
+        add("conv_out", 1, c, cfg.out_channels, False)
+    return convs
+
+
+def s2d_step_launches(convs):
+    """K6, K2, K3 and K4 launches of one s2d train step, from its conv list."""
+    k6 = sum(not cv.get("k2", True) for cv in convs)
+    return {"conv3d_tapconcat_persample": k6,
+            "conv3d_same_persample": len(convs) - k6,
+            "conv3d_same_persample_transpose": sum(cv["name"] != "encoder_block1.conv1"
+                                                   for cv in convs),
+            "conv3d_dw_persample": len(convs)}
+
+
+def tapconcat_kernel_phase(cfg, batch=8):
+    """K6 at the s2d entry conv of training (batch 8 of 32x128x128 patches:
+    x (8,32,64,64,4), Co = 4*mult_chan): against its plain version in fp64 on
+    samples 0 and 7, then timed beside its plain version (fp32 sums, TF32
+    off), a cuDNN grouped conv (a yardstick the port does not call), K2 on
+    the same conv (checked too) and its bound. Returns K6's totals."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    bf = torch.bfloat16
+    n, (d, h, w) = batch, (PATCH[0], PATCH[1] // 2, PATCH[2] // 2)
+    co = 4 * cfg.in_channels * cfg.mult_chan
+    x = torch.randn((n, d, h, w, 4), generator=gen, device=dev).to(bf)
+    w6 = (torch.randn((n, 5, 3, 3, 4, co), generator=gen, device=dev) / 180 ** 0.5).to(bf)
+    wn = w6.reshape(n, 180, co)
+
+    def kernel():
+        return conv3d_tapconcat_persample(x, wn)
+
+    def plain():
+        return conv3d_tapconcat_persample_plain(x, wn, compute_dtype=bf)
+
+    def k2_same_conv():
+        return conv3d_same_persample(x, w6, compute_dtype=bf)
+
+    xl = x.permute(0, 4, 1, 2, 3).reshape(1, n * 4, d, h, w).contiguous(
+        memory_format=torch.channels_last_3d)
+    wl = w6.permute(0, 5, 4, 1, 2, 3).reshape(n * co, 4, 5, 3, 3).contiguous(
+        memory_format=torch.channels_last_3d)
+
+    def library():
+        return F.conv3d(xl, wl, padding=(2, 1, 1), groups=n)
+
+    ref = conv3d_tapconcat_persample_plain(x[CHECKED_SAMPLES].double(), wn[CHECKED_SAMPLES].double())
+    ok, max_abs, top = check_samples("conv3d_tapconcat_persample", kernel(), ref, fp32_out=False)
+    ok_k2, max_abs_k2, _ = check_samples("conv3d_same_persample (K6's conv)", k2_same_conv(), ref,
+                                         fp32_out=False)
+    torch.cuda.synchronize()
+    del ref
+    kernel_ms = cuda_ms(kernel, reps=20, warmup=3)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    library_ms = cuda_ms(library, reps=10, warmup=2)
+    k2_ms = cuda_ms(k2_same_conv, reps=10, warmup=2)
+    flops = 2.0 * n * d * h * w * 180 * co
+    nbytes = x.numel() * 2 + wn.numel() * 2 + n * d * h * w * co * 2
+    bound_ms, bound_by = bound(flops, nbytes)
+    out = {"phase": "train_s2d_kernel", "kernel": "conv3d_tapconcat_persample",
+           "convs": ["encoder_block1.conv1 (s2d)"], "launches_per_step": 1,
+           "x": [n, d, h, w, 4], "taps": [5, 3, 3], "co": co, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "F.conv3d grouped (groups=N), bf16, channels_last_3d, padding (2,1,1)",
+           "k2_same_conv_ms": k2_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "tflops": flops / kernel_ms / 1e9,
+           "max_abs_err": max_abs, "max_abs_ref": top, "k2_max_abs_err": max_abs_k2,
+           "tolerance": BF16_TOL, "ok": ok and ok_k2}
+    emit(out)
+    check(ok, f"conv3d_tapconcat_persample: kernel disagrees with the plain version ({max_abs})")
+    check(ok_k2, f"conv3d_same_persample at K6's conv disagrees ({max_abs_k2})")
+    del x, w6, wn, xl, wl
+    torch.cuda.empty_cache()
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "ops_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "bytes_ms": nbytes / PEAK_BYTES * 1e3, "max_abs_err": max_abs, "k2_same_conv_ms": k2_ms}
+
+
+def train_s2d_kernel_phase(cfg):
+    """K6 at its shape, then K2, K3 and K4 at every per-sample conv shape of
+    the s2d levels of the train step (taps (5,3,3); the native levels' shapes
+    are train_kernel's). Returns (K6 totals, K2-K4 totals over the s2d levels
+    of one step)."""
+    k6 = tapconcat_kernel_phase(cfg)
+    convs = [cv for cv in s2d_train_convs(cfg, PATCH, batch=8) if "taps" in cv]
+    return k6, train_kernel_phase(convs, phase="train_s2d_kernel")
+
+
+def s2d_config(num_tasks, **model):
+    return Config(model=ModelConfig(**model),
+                  data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
+
+
+def train_s2d_phase(cfg_model, tasks=DEFAULT_DATASETS[:4], epochs=3):
+    """run_experiment with the default Config (s2d training, and the JAX
+    package's default serving route for val and test) at full width on
+    synthetic data: 4 tasks x 2 volumes = one mixed batch of 8 per epoch, val
+    after the last epoch, the best checkpoint, its reload and the test pass.
+    Returns the launch counts of the run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_s2d_")
+    try:
+        cfg = Config(data=DataConfig(adopted_datasets=tasks),
+                     train=TrainConfig(num_epochs=epochs, interval_val=epochs),
+                     path_exp_dir=os.path.join(tmp, "train_s2d"), exp_name="train_s2d")
+        check(cfg.model == cfg_model and cfg.model.train_s2d, "train_s2d: not the default config")
+        stores = train_cli.build_stores(cfg, logging.getLogger("chip_smoke"), synthetic=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, stores, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        net, steps = res["state"].net, res["state"].step
+        check(net.s2d_levels == reparam.default_s2d_levels(cfg.model), "train_s2d: s2d levels")
+        init = create_train_state(cfg, torch.Generator().manual_seed(cfg.train.seed), "cuda").net
+        report = param_report(net, init)
+        per_step = s2d_step_launches(s2d_train_convs(cfg.model, PATCH, cfg.train.batch_size))
+        # val and test: 2 volumes per task each, one batch per volume, on the
+        # XLA s2d serving route (K1 at every conv but conv_out, two K1 calls
+        # per s2d decoder conv1)
+        levels = reparam.default_s2d_levels(cfg.model)
+        k1_expected = 2 * (2 * len(tasks)) * (4 * cfg.model.depth + 2 + len(levels))
+        out = {"phase": "train_s2d", "seconds": secs, "tasks": list(tasks), "epochs": epochs,
+               "steps": steps, "s2d_levels": list(net.s2d_levels), "launches": counts,
+               "launches_per_step": {k: counts[k] / steps for k in per_step},
+               "expected_launches_per_step": per_step,
+               "k1_launches_val_test": counts["conv3d_same"], "k1_expected": k1_expected,
+               "train_loss": res["train_log"]["loss/epoch"],
+               "test_mse": res["test_log"]["metric_test/MSE"], **report}
+        emit(out)
+        check(steps == epochs, f"train_s2d: {steps} steps, expected {epochs}")
+        check(tuple(per_step.values()) == (1, 17, 17, 18),
+              f"train_s2d: the conv list gives {per_step} launches per step")
+        for k, v in per_step.items():
+            check(counts[k] == v * steps, f"train_s2d: {k} launched {counts[k]} times in {steps} "
+                                          f"steps, expected {v} per step")
+        check(counts["conv3d_same"] == k1_expected, "train_s2d: K1 launches in val/test")
+        check(counts["conv3d_dpad"] == 0, "train_s2d: K5 launched")
+        check(out["train_loss"] == out["train_loss"] and abs(out["train_loss"]) < float("inf"),
+              "train_s2d: non-finite loss")
+        check_params("train_s2d", report)
+        check(res["best_path"] is not None, "train_s2d: no best checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def train_s2d_step_phase(num_tasks, steps=6):
+    """The full-width train step (batch 8, mixed tasks, bf16) in the s2d
+    layout beside the native one, from the same weights on the same batch:
+    warm-up, then native, s2d, s2d, native in rounds of steps/2, so that each
+    median over `steps` steps sits beside the other's on the same card. Then
+    the s2d step's device profile and peak memory."""
+    states = {name: create_train_state(s2d_config(num_tasks, train_s2d=name == "s2d"),
+                                       torch.Generator().manual_seed(SEED + 21), "cuda")
+              for name in ("native", "s2d")}
+    fns = {name: make_train_step(s2d_config(num_tasks), st) for name, st in states.items()}
+    batch = full_width_batch(num_tasks)
+    times, peaks = {"native": [], "s2d": []}, {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(batch)  # warm-up
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+    for name in ("native", "s2d", "s2d", "native"):
+        for _ in range(steps // 2):
+            t0 = time.perf_counter()
+            fns[name](batch)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    prof, kernels = device_breakdown(lambda: fns["s2d"](batch), top=10)
+    del prof["conv3d_same_ms"], prof["conv3d_dpad_ms"]
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    out = {"phase": "train_s2d_step", "batch": 8, "patch": list(PATCH), "tasks": num_tasks,
+           "step_ms_median": med, "step_ms_all": times, "s2d_over_native": med["s2d"] / med["native"],
+           "peak_memory_gb": peaks, "s2d_profile": {**prof, **per_sample_kernel_ms(kernels)}}
+    emit(out)
+    check(all(out["s2d_profile"][k] > 0 for k in ("k2_ms", "k3_ms", "k4_ms", "k6_ms")),
+          "train_s2d_step: a per-sample kernel is missing from the s2d profile")
+    del states, fns
+    torch.cuda.empty_cache()
+
+
+def train_s2d_check_phase(num_tasks):
+    """One full-width forward+backward, batch 8, from the same weights on the
+    same batch, three ways: the s2d merged route in bf16 (K6, K2-K4), the
+    native merged route in bf16 (K2-K4) and the native expert-sum route in
+    fp32 (plain convs; K1 has no backward). The s2d route is held to the
+    native one by ``hold_gradients``, train_check's rule."""
+    batch = full_width_batch(num_tasks, seed=SEED + 60)
+    state = create_train_state(s2d_config(num_tasks, train_s2d=False),
+                               torch.Generator().manual_seed(SEED + 61), "cuda").net.state_dict()
+    state = {k: v.clone() for k, v in state.items()}
+    grads, losses = {}, {}
+    for run, s2d_on, impl, cdt in (("s2d", True, "auto", "bfloat16"),
+                                   ("native", False, "auto", "bfloat16"),
+                                   ("native_fp32", False, "expert_sum", "float32")):
+        net = RepModeNet(s2d_config(num_tasks, train_s2d=s2d_on, train_impl=impl).model,
+                         num_tasks, compute_dtype=cdt, device="cuda")
+        net.load_state_dict(state, strict=True)
+        net.train()
+        with mock.patch.object(mode_ops, "conv3d_same", conv3d_same_plain):
+            loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
+            loss.backward()
+        losses[run] = float(loss.detach())
+        grads[run] = {k: v.grad.detach().double() for k, v in net.named_parameters()}
+        del net, loss
+        torch.cuda.empty_cache()
+
+    hold_gradients("train_s2d_check", losses, grads, "s2d", "native", "native_fp32")
+    del grads
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
@@ -1025,7 +1318,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
-    cfg = ModelConfig()  # mult_chan 32, depth 4, 5^3 kernels
+    cfg = ModelConfig(train_s2d=False)  # mult_chan 32, depth 4, 5^3 kernels; native nets
+    cfg_s2d = ModelConfig()  # the same net in the s2d layout, the default
     convs = serving_convs(cfg, PATCH, batch=8)
     check(len(convs) == 19, f"expected 19 convs, got {len(convs)}")
     build_phase()
@@ -1038,7 +1332,11 @@ def main(argv=None):
                   "train_step": lambda: train_step_phase(convs, num_tasks=4),
                   "train_check": lambda: train_check_phase(num_tasks=4),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
-                  "serve_s2d": lambda: serve_s2d_phase(cfg)}
+                  "serve_s2d": lambda: serve_s2d_phase(cfg),
+                  "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
+                  "train_s2d": lambda: train_s2d_phase(cfg_s2d),
+                  "train_s2d_step": lambda: train_s2d_step_phase(num_tasks=4),
+                  "train_s2d_check": lambda: train_s2d_check_phase(num_tasks=4)}
         for name in only:
             phases[name]()
             torch.cuda.empty_cache()
@@ -1065,6 +1363,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_step_phase(convs, num_tasks=4)
     train_check_phase(num_tasks=4)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    k6_totals, s2d_train_totals = train_s2d_kernel_phase(cfg_s2d)
+    emit({"phase": "train_s2d_kernel_done", "seconds": time.perf_counter() - t0,
+          "s2d_levels_per_step": s2d_train_totals})
+    s2d_train_counts = train_s2d_phase(cfg_s2d)
+    torch.cuda.empty_cache()
+    train_s2d_step_phase(num_tasks=4)
+    train_s2d_check_phase(num_tasks=4)
 
     def entry(name, source, replaces, launches, t):
         return {"name": name, "route": "cuda", "source": f"repmode_tpu_torch/csrc/{source}",
@@ -1088,6 +1396,9 @@ def main(argv=None):
               train_totals["conv3d_dw_persample"]),
         entry("conv3d_dpad", "conv3d_dpad.cu", "repmode_tpu/ops/pallas/conv3d.py:242",
               s2d_counts["conv3d_dpad"], s2d_totals),
+        entry("conv3d_tapconcat_persample", "conv3d_tapconcat.cu",
+              "tools/bench_enc1c1_kernel.py:85", s2d_train_counts["conv3d_tapconcat_persample"],
+              k6_totals),
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -4,8 +4,11 @@ The reference flag surface (config.py:4-82) plus the JAX package's additions
 (--num_devices, --compute_dtype, --synthetic, ...) and the port's --device.
 ``to_config`` sets ``eval.s2d=False``: on an H100 the space-to-depth
 route does 1.44x the native route's arithmetic (structured zeros), so the
-CLI serves native. The s2d routes are reached through a ``Config``
-(``eval.s2d``, ``eval.pallas_conv``, ``eval.predictor``); there is no flag.
+CLI serves native. It sets ``model.train_s2d=False`` too, so the CLI keeps
+training in the native layout: no benchmark cell compares the two training
+routes yet (ROADMAP A12). The s2d routes are reached through a ``Config``
+(``model.train_s2d``, ``eval.s2d``, ``eval.pallas_conv``,
+``eval.predictor``), as in the JAX package; there is no flag.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def to_config(ns: argparse.Namespace, exp_name: Optional[str] = None) -> Config:
     return Config(
         model=ModelConfig(
             name=ns.nn_module, mult_chan=ns.mult_chan,
-            train_impl=ns.train_impl,
+            train_impl=ns.train_impl, train_s2d=False,
         ),
         train=TrainConfig(
             num_epochs=ns.num_epochs,

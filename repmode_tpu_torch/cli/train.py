@@ -86,6 +86,8 @@ def main(argv=None):
 
     dirs = ExperimentDirs(cfg)
     logger = setup_logger(dirs.logs, cfg.exp_name)
+    logger.info("[CONFIG]  model.train_s2d=False: the native training layout; no benchmark "
+                "cell compares it with the space-to-depth layout yet")
     logger.info("[ACTION]  Loading dataset ...")
     logger.info(f"[DATASET] Adopted datasets: {cfg.data.adopted_datasets}")
     stores = build_stores(cfg, logger, synthetic=ns.synthetic)

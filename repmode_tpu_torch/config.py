@@ -7,8 +7,9 @@ by one reads in the other through the JSON round trip. ``EvalConfig.s2d``,
 route and the predictor mode (``models/reparam.make_inference``,
 ``infer/predict.TiledPredictor``), with the JAX package's defaults (the
 space-to-depth route, which the port's CLI turns off: ``cli/args.py``).
-``ModelConfig.train_s2d`` is kept for the round trip only: the port trains
-in the native NDHWC layout.
+``ModelConfig.train_s2d`` runs the narrow levels of the net in the
+space-to-depth layout, in training and eval mode, as in the JAX package
+(``models/repmode.py``); it is on by default, and the CLI turns it off too.
 """
 
 from __future__ import annotations

@@ -19,10 +19,26 @@ K2 forward, K3 dx, K4 dW on the card), 'expert_sum' the reference. Eval mode
 runs the expert sum with running-stat BN. The bf16 policy is the JAX
 package's: in training a conv's output is rounded to the compute dtype before
 BN, and every MoDE conv stores its post-ReLU output in the compute dtype.
+
+With ``cfg.train_s2d`` (the default, as in JAX) the narrow levels
+(``reparam.default_s2d_levels``: native width below 128, levels 1 and 2 at
+mult_chan 32) run in the space-to-depth domain, in training and in eval
+mode, as ``repmode_tpu/models/repmode.py`` runs them with its A/B switches
+at their defaults: an encoder block converts at entry, keeps its skip in the
+s2d domain and downsamples to the native next level
+(``downsample_s2d_domain``); a decoder block upsamples into the s2d domain
+(``upsample_to_s2d``), concatenates the skip first and converts back with
+``depth_to_space_hw`` unless it is level 1, whose ``conv_out`` runs in the
+s2d domain. BN there is phase-aware (``phases=4``). The MoDE convs of those
+levels take the s2d routes of ``ops/mode.py``: the tap-major merged conv for
+Co <= 4, else the merged route (K6 + K4 for the 4-lane entry conv, K2-K4 for
+the rest) in training and the s2d expert sum in eval mode or under
+'expert_sum'. Parameter names and shapes are the same in both layouts.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -31,14 +47,25 @@ from torch import nn
 
 from repmode_tpu_torch.config import ModelConfig
 from repmode_tpu_torch.device import DeviceLike, resolve_device
+from repmode_tpu_torch.models.reparam import default_s2d_levels
 from repmode_tpu_torch.ops.conv3d import downsample2x_conv, upsample2x_convt
 from repmode_tpu_torch.ops.mode import (
     ExpertKernels,
     gate_logits_to_weights,
     mode_conv_expert_sum,
+    mode_conv_expert_sum_s2d_domain,
     mode_conv_merged_persample,
+    mode_conv_merged_s2d,
+    mode_conv_tapmajor_merged_s2d,
 )
 from repmode_tpu_torch.ops.norm import batch_norm_apply, batch_norm_train
+from repmode_tpu_torch.ops.s2d import (
+    depth_to_space_hw,
+    downsample_s2d_domain,
+    s2d_down_kernel,
+    space_to_depth_hw,
+    upsample_to_s2d,
+)
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -61,20 +88,32 @@ _TRAIN_OPS = {
     "merged_pallas": mode_conv_merged_persample,
     "expert_sum": mode_conv_expert_sum,
 }
+# the same in the s2d domain
+_TRAIN_OPS_S2D = {
+    "auto": mode_conv_merged_s2d,
+    "merged": mode_conv_merged_s2d,
+    "merged_pallas": mode_conv_merged_s2d,
+    "expert_sum": mode_conv_expert_sum_s2d_domain,
+}
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
+def _bn(x: torch.Tensor, bn: nn.BatchNorm3d, phases: int = 1) -> torch.Tensor:
     """Batch statistics in training mode (running stats updated), running
-    statistics in eval mode."""
+    statistics in eval mode; ``phases=4`` for an s2d tensor."""
     if bn.training:
         return batch_norm_train(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                 momentum=bn.momentum, eps=bn.eps,
-                                num_batches_tracked=bn.num_batches_tracked)
-    return batch_norm_apply(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+                                num_batches_tracked=bn.num_batches_tracked, phases=phases)
+    return batch_norm_apply(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+                            phases=phases)
 
 
 class MoDEConv(nn.Module):
-    """One MoDE conv unit (reference MoDEConv, RepMode.py:123-214)."""
+    """One MoDE conv unit (reference MoDEConv, RepMode.py:123-214).
+
+    ``s2d``: input and output are s2d-domain tensors (N,D,h',w',4C); the
+    input is a concat of s2d segments of native widths
+    ``input_channel_sizes`` (() = one segment)."""
 
     def __init__(
         self,
@@ -89,6 +128,8 @@ class MoDEConv(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
         train_impl: str = "auto",
+        s2d: bool = False,
+        input_channel_sizes: tuple = (),
     ):
         super().__init__()
         if conv_type not in ("normal", "final"):
@@ -99,6 +140,8 @@ class MoDEConv(nn.Module):
         self.conv_type = conv_type
         self.compute_dtype = compute_dtype
         self.train_impl = train_impl
+        self.s2d = s2d
+        self.input_channel_sizes = tuple(input_channel_sizes)
         g = generator
         self.expert_conv5x5_conv = nn.Parameter(torch_uniform_init((co, ci, 5, 5, 5), ci * 125, g))
         self.expert_conv3x3_conv = nn.Parameter(torch_uniform_init((co, ci, 3, 3, 3), ci * 27, g))
@@ -129,21 +172,29 @@ class MoDEConv(nn.Module):
             )
         )
 
+    def _op(self):
+        """The MoDE conv this mode and domain run (JAX MoDEConv's dispatch)."""
+        if self.training and self.train_impl not in _TRAIN_OPS:
+            raise ValueError(f"train_impl must be one of {sorted(_TRAIN_OPS)}, "
+                             f"got {self.train_impl!r}")
+        if not self.s2d:
+            return _TRAIN_OPS[self.train_impl] if self.training else mode_conv_expert_sum
+        if self.out_chan <= 4:
+            op = mode_conv_tapmajor_merged_s2d
+        elif self.training:
+            op = _TRAIN_OPS_S2D[self.train_impl]
+        else:
+            op = mode_conv_expert_sum_s2d_domain
+        return functools.partial(op, channel_sizes=self.input_channel_sizes or None)
+
     def forward(self, x: torch.Tensor, task_emb: torch.Tensor) -> torch.Tensor:
         logits = F.linear(task_emb.to(self.gate.weight.dtype), self.gate.weight, self.gate.bias)
         g = gate_logits_to_weights(logits, self.num_experts, self.out_chan)
-        if self.training:
-            op = _TRAIN_OPS.get(self.train_impl)
-            if op is None:
-                raise ValueError(f"train_impl must be one of {sorted(_TRAIN_OPS)}, "
-                                 f"got {self.train_impl!r}")
-            y = op(x, self.experts(), g, compute_dtype=self.compute_dtype)
-            if self.compute_dtype is not None:
-                y = y.to(self.compute_dtype)  # conv output in bf16 before BN, as in JAX
-        else:
-            y = mode_conv_expert_sum(x, self.experts(), g, compute_dtype=self.compute_dtype)
+        y = self._op()(x, self.experts(), g, compute_dtype=self.compute_dtype)
+        if self.training and self.compute_dtype is not None:
+            y = y.to(self.compute_dtype)  # conv output in bf16 before BN, as in JAX
         if self.conv_type == "normal":
-            y = torch.relu(_bn(y, self.subsequent_layer[0]))
+            y = torch.relu(_bn(y, self.subsequent_layer[0], 4 if self.s2d else 1))
         if self.compute_dtype is not None:
             # consumers round to the compute dtype anyway; storing it halves memory
             y = y.to(self.compute_dtype)
@@ -151,16 +202,20 @@ class MoDEConv(nn.Module):
 
 
 class MoDESubNet2Conv(nn.Module):
-    """Two stacked MoDE convs (reference MoDESubNet2Conv, RepMode.py:111-120)."""
+    """Two stacked MoDE convs (reference MoDESubNet2Conv, RepMode.py:111-120);
+    with ``s2d`` both run in the s2d domain and ``input_channel_sizes``
+    describes conv1's concatenated input."""
 
     def __init__(self, num_experts, num_tasks, n_in, n_out, cfg: ModelConfig,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, s2d=False, input_channel_sizes=()):
         super().__init__()
         common = dict(
             kernel_size=cfg.kernel_size, bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps,
             compute_dtype=compute_dtype, generator=generator, train_impl=cfg.train_impl,
+            s2d=s2d,
         )
-        self.conv1 = MoDEConv(num_experts, num_tasks, n_in, n_out, **common)
+        self.conv1 = MoDEConv(num_experts, num_tasks, n_in, n_out,
+                              input_channel_sizes=input_channel_sizes, **common)
         self.conv2 = MoDEConv(num_experts, num_tasks, n_out, n_out, **common)
 
     def forward(self, x, task_emb):
@@ -178,47 +233,61 @@ def _resample_block(conv_cls, ci, co, fan_in, weight_shape, cfg, generator) -> n
 
 class MoDEEncoderBlock(nn.Module):
     """MoDE double conv -> skip, then k2s2 conv + BN + ReLU downsample
-    (reference MoDEEncoderBlock, RepMode.py:74-89)."""
+    (reference MoDEEncoderBlock, RepMode.py:74-89). With ``s2d`` the block
+    converts its native input at entry, returns the skip in the s2d domain
+    and downsamples to the native next level."""
 
     def __init__(self, num_experts, num_tasks, in_chan, out_chan, cfg: ModelConfig,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, s2d=False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.s2d = s2d
         self.conv_more = MoDESubNet2Conv(num_experts, num_tasks, in_chan, out_chan, cfg,
-                                         compute_dtype, generator)
+                                         compute_dtype, generator, s2d=s2d)
         self.conv_down = _resample_block(
             nn.Conv3d, out_chan, out_chan, out_chan * 8, (out_chan, out_chan, 2, 2, 2),
             cfg, generator,
         )
 
     def forward(self, x, task_emb):
+        if self.s2d:
+            x = space_to_depth_hw(x)
         x_skip = self.conv_more(x, task_emb)
         w_down = self.conv_down[0].weight.permute(2, 3, 4, 1, 0)
-        x = downsample2x_conv(x_skip, w_down, compute_dtype=self.compute_dtype)
+        if self.s2d:
+            x = downsample_s2d_domain(x_skip, s2d_down_kernel(w_down),
+                                      compute_dtype=self.compute_dtype)
+        else:
+            x = downsample2x_conv(x_skip, w_down, compute_dtype=self.compute_dtype)
         return torch.relu(_bn(x, self.conv_down[1])), x_skip
 
 
 class MoDEDecoderBlock(nn.Module):
     """k2s2 transposed conv + BN + ReLU, concat skip first, MoDE double conv
-    (reference MoDEDecoderBlock, RepMode.py:92-108)."""
+    (reference MoDEDecoderBlock, RepMode.py:92-108). With ``s2d`` the
+    upsample emits the s2d domain, the skip arrives in it, and the output
+    stays in it (the caller converts back where the next consumer is native)."""
 
     def __init__(self, num_experts, num_tasks, in_chan, out_chan, cfg: ModelConfig,
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, s2d=False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.s2d = s2d
         # torch ConvTranspose3d weight is (Ci, Co, k, k, k); its fan_in is
         # computed from dim 1, i.e. out_chan * k^3
         self.convt = _resample_block(
             nn.ConvTranspose3d, in_chan, out_chan, out_chan * 8, (in_chan, out_chan, 2, 2, 2),
             cfg, generator,
         )
-        self.conv_less = MoDESubNet2Conv(num_experts, num_tasks, in_chan, out_chan, cfg,
-                                         compute_dtype, generator)
+        self.conv_less = MoDESubNet2Conv(
+            num_experts, num_tasks, in_chan, out_chan, cfg, compute_dtype, generator, s2d=s2d,
+            input_channel_sizes=(out_chan, out_chan) if s2d else ())
 
     def forward(self, x, x_skip, task_emb):
         w_up = self.convt[0].weight.permute(2, 3, 4, 0, 1)
-        x = upsample2x_convt(x, w_up, compute_dtype=self.compute_dtype)
-        x = torch.relu(_bn(x, self.convt[1]))
+        upsample = upsample_to_s2d if self.s2d else upsample2x_convt
+        x = upsample(x, w_up, compute_dtype=self.compute_dtype)
+        x = torch.relu(_bn(x, self.convt[1], 4 if self.s2d else 1))
         dt = torch.promote_types(x_skip.dtype, x.dtype)
         x = torch.cat([x_skip.to(dt), x.to(dt)], dim=-1)  # skip first (RepMode.py:106)
         return self.conv_less(x, task_emb)
@@ -247,19 +316,22 @@ class RepModeNet(nn.Module):
         self.cfg, self.num_tasks = cfg, num_tasks
         e, t, c = cfg.num_experts, num_tasks, cfg.in_channels * cfg.mult_chan
         chans = [c * 2**i for i in range(cfg.depth + 1)]
+        # the space-to-depth levels (JAX RepModeNet, repmode.py:411-417)
+        self.s2d_levels = default_s2d_levels(cfg) if cfg.train_s2d else ()
         in_ch = cfg.in_channels
         for i in range(1, cfg.depth + 1):
             setattr(self, f"encoder_block{i}", MoDEEncoderBlock(
-                e, t, in_ch, chans[i - 1], cfg, cdt, generator))
+                e, t, in_ch, chans[i - 1], cfg, cdt, generator, s2d=i in self.s2d_levels))
             in_ch = chans[i - 1]
         self.bottle_block = MoDESubNet2Conv(
             e, t, chans[cfg.depth - 1], chans[cfg.depth], cfg, cdt, generator)
         for i in range(cfg.depth, 0, -1):
             setattr(self, f"decoder_block{i}", MoDEDecoderBlock(
-                e, t, chans[i], chans[i - 1], cfg, cdt, generator))
+                e, t, chans[i], chans[i - 1], cfg, cdt, generator, s2d=i in self.s2d_levels))
         self.conv_out = MoDEConv(
             e, t, c, cfg.out_channels, kernel_size=cfg.kernel_size, conv_type="final",
             compute_dtype=cdt, generator=generator, train_impl=cfg.train_impl,
+            s2d=1 in self.s2d_levels,
         )
         self.to(dev)
 
@@ -272,5 +344,9 @@ class RepModeNet(nn.Module):
         x = self.bottle_block(x, task_emb)
         for i in range(self.cfg.depth, 0, -1):
             x = getattr(self, f"decoder_block{i}")(x, skips[i - 1], task_emb)
+            if i > 1 and i in self.s2d_levels:  # level 1's output feeds the s2d conv_out
+                x = depth_to_space_hw(x)
         y = self.conv_out(x, task_emb)
+        if self.conv_out.s2d:
+            y = depth_to_space_hw(y)
         return y.to(torch.promote_types(y.dtype, torch.float32))

@@ -15,7 +15,12 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          weight gradient (``csrc/conv3d_dw_persample.cu``);
   conv3d_dpad            K5, ``pallas_conv3d_dpad``: the chainable conv of
                          the space-to-depth serving levels on depth-padded
-                         tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``).
+                         tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``);
+  conv3d_tapconcat_persample  K6, the tap-concat conv of
+                         ``tools/bench_enc1c1_kernel.py``: the per-sample
+                         conv of a 4-lane input as one K=180 GEMM per tile,
+                         the space-to-depth entry conv of training
+                         (``csrc/conv3d_tapconcat.cu``).
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
 (and ``conv3d_same_persample.transpose_launches`` those of K3).
@@ -586,6 +591,110 @@ def _conv3d_dpad_cuda(x, w, bias, relu, compute_dtype) -> torch.Tensor:
         msg = lib.conv3d_dpad_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
                            f"w {tuple(w.shape)}")
+    return y
+
+
+# ------------------------------------------------ tap-concat entry conv (K6)
+
+TAPCONCAT_TAPS = (5, 3, 3)
+TAPCONCAT_CI = 4
+
+
+def _tapconcat_patches(x: torch.Tensor) -> torch.Tensor:
+    """(N,D,H,W,4) -> (N, D*H*W, 180): the 45 shifted 4-lane slices of the
+    zero-padded x, taps (dz,dy,dx) lexicographic, lanes minor."""
+    kd, kh, kw = TAPCONCAT_TAPS
+    n, d, h, wl, ci = x.shape
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2, kd // 2, kd // 2))
+    parts = [xp[:, a:a + d, b:b + h, c:c + wl]
+             for a in range(kd) for b in range(kh) for c in range(kw)]
+    return torch.cat(parts, dim=-1).reshape(n, d * h * wl, kd * kh * kw * ci)
+
+
+def conv3d_tapconcat_persample_plain(
+    x: torch.Tensor,
+    wn: torch.Tensor,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``conv3d_tapconcat_persample``: the patch matrix of
+    each sample times its weights, one ``bmm``.
+
+    x: (N,D,H,W,4), wn: (N,180,Co) with rows tap-major ((dz,dy,dx) over taps
+    (5,3,3), lexicographic) times the 4 lanes, 'same' zero padding. Inputs
+    rounded to the compute dtype, sums in the accumulation dtype; output
+    (N,D,H,W,Co) in ``out_dtype`` (default: the accumulation dtype).
+    """
+    n, d, h, wl, ci = x.shape
+    if ci != TAPCONCAT_CI or wn.shape[:2] != (n, 45 * ci):
+        raise ValueError(f"conv3d_tapconcat_persample: x {tuple(x.shape)} and wn "
+                         f"{tuple(wn.shape)} must be (N,D,H,W,4) and (N,180,Co)")
+    xr = _round(x, compute_dtype)
+    wr = _round(wn, compute_dtype).to(xr.dtype)
+    y = torch.bmm(_tapconcat_patches(xr), wr).reshape(n, d, h, wl, wn.shape[-1])
+    return y.to(out_dtype or y.dtype)
+
+
+def conv3d_tapconcat_persample(
+    x: torch.Tensor,
+    wn: torch.Tensor,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Per-sample 'same' conv of a 4-lane input as one K=180 GEMM per tile
+    (K6): the space-to-depth entry conv of training (``encoder_block1.conv1``).
+
+    See ``conv3d_tapconcat_persample_plain`` for the function. On a CUDA
+    tensor: one launch of the bf16 tensor-core kernel on the current stream
+    (``compute_dtype`` bf16, or None with a bf16 x; ``out_dtype`` bf16, the
+    default). It raises on another compute or output dtype, on an input with
+    other than 4 channels and on weights for taps other than (5,3,3). On a
+    CPU tensor: the plain version. ``conv3d_tapconcat_persample.launches``
+    counts kernel launches.
+    """
+    if x.device.type == "cpu":
+        return conv3d_tapconcat_persample_plain(x, wn, compute_dtype=compute_dtype,
+                                                out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_tapconcat_persample: unsupported device {x.device}")
+    y = _conv3d_tapconcat_cuda(x, wn, compute_dtype, out_dtype)
+    conv3d_tapconcat_persample.launches += 1
+    return y
+
+
+conv3d_tapconcat_persample.launches = 0
+
+
+def _conv3d_tapconcat_cuda(x, wn, compute_dtype, out_dtype) -> torch.Tensor:
+    name = "conv3d_tapconcat_persample"
+    if x.dim() != 5 or wn.dim() != 3:
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be 5-D and wn {tuple(wn.shape)} 3-D")
+    n, d, h, wl, ci = x.shape
+    taps = TAPCONCAT_TAPS[0] * TAPCONCAT_TAPS[1] * TAPCONCAT_TAPS[2]
+    if ci != TAPCONCAT_CI:
+        raise ValueError(f"{name}: the CUDA kernel takes a {TAPCONCAT_CI}-channel input, got "
+                         f"x {tuple(x.shape)}")
+    if wn.shape[0] != n or wn.shape[1] != taps * ci:
+        raise ValueError(f"{name}: wn {tuple(wn.shape)} must be (N, {taps * ci}, Co): taps "
+                         f"{TAPCONCAT_TAPS} x {ci} lanes for x {tuple(x.shape)}")
+    if (out_dtype or torch.bfloat16) != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel writes bfloat16, got out_dtype {out_dtype}")
+    xb, wb = _bf16_operands(name, (x, wn), compute_dtype, x.device)
+    co = wb.shape[-1]
+    wb = _aligned(F.pad(wb, (0, -co % 8)))  # 16-byte weight rows
+    xb = _aligned(xb)
+    y = torch.empty((n, d, h, wl, co), dtype=torch.bfloat16, device=x.device)
+    lib = build.load("conv3d_tapconcat")
+    err = lib.conv3d_tapconcat_bf16(
+        xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, d, h, wl, co, wb.shape[-1],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.conv3d_tapconcat_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"wn {tuple(wn.shape)}")
     return y
 
 

@@ -31,6 +31,7 @@ SOURCES: Dict[str, str] = {
     "conv3d_persample": "conv3d_persample.cu",
     "conv3d_dw_persample": "conv3d_dw_persample.cu",
     "conv3d_dpad": "conv3d_dpad.cu",
+    "conv3d_tapconcat": "conv3d_tapconcat.cu",
 }
 
 NVCC_FLAGS = (
@@ -130,6 +131,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "conv3d_dpad":
         lib.conv3d_dpad_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
         lib.conv3d_dpad_bf16.restype = i32
+    elif name == "conv3d_tapconcat":
+        lib.conv3d_tapconcat_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+        lib.conv3d_tapconcat_bf16.restype = i32
     else:
         raise KeyError(f"no C interface declared for kernel {name!r}")
     err_fn = getattr(lib, f"{name}_error_string")

@@ -5,6 +5,11 @@ statistics are computed as the JAX package computes them: in fp32 (fp64
 stays fp64), the variance as E[x^2] - E[x]^2 clamped at 0. The output uses
 the biased variance and the running variance the unbiased one, momentum 0.1.
 Plain PyTorch ops: autograd gives the backward, as XLA's AD does in JAX.
+
+``phases=4`` normalizes a space-to-depth tensor (N,D,h',w',4C), phase-major:
+it is viewed as (..., 4, C), so statistics and parameters are per native
+channel, as for the native tensor (``repmode_tpu/models/repmode.py``
+``BatchNorm3d(phases=4)``).
 """
 
 from __future__ import annotations
@@ -21,12 +26,15 @@ def batch_norm_apply(
     scale: torch.Tensor,
     bias: torch.Tensor,
     eps: float = 1e-5,
+    phases: int = 1,
 ) -> torch.Tensor:
     """Normalize the last (channel) axis with given statistics, in fp32
     (fp64 stays fp64): (x - mean) * rsqrt(var + eps) * scale + bias."""
     dt = torch.promote_types(x.dtype, torch.float32)
+    xv = x.reshape(*x.shape[:-1], phases, -1) if phases > 1 else x
     inv = torch.rsqrt(var.to(dt) + eps)
-    return (x.to(dt) - mean.to(dt)) * inv * scale.to(dt) + bias.to(dt)
+    y = (xv.to(dt) - mean.to(dt)) * inv * scale.to(dt) + bias.to(dt)
+    return y.reshape(x.shape)
 
 
 def batch_norm_train(
@@ -39,6 +47,7 @@ def batch_norm_train(
     momentum: float = 0.1,
     eps: float = 1e-5,
     num_batches_tracked: Optional[torch.Tensor] = None,
+    phases: int = 1,
 ) -> torch.Tensor:
     """Training mode: normalize by the batch statistics over (N, D, H, W).
 
@@ -48,10 +57,12 @@ def batch_norm_train(
     torch.nn.BatchNorm3d does. Returns the normalized x.
     """
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    axes = tuple(range(x.dim() - 1))
+    if phases > 1:
+        x32 = x32.reshape(*x.shape[:-1], phases, -1)
+    axes = tuple(range(x32.dim() - 1))
     bmean = x32.mean(dim=axes)
     bvar = torch.clamp(torch.square(x32).mean(dim=axes) - torch.square(bmean), min=0.0)
-    y = batch_norm_apply(x32, bmean, bvar, scale, bias, eps)
+    y = batch_norm_apply(x32, bmean, bvar, scale, bias, eps).reshape(x.shape)
     n = x32.numel() // x32.shape[-1]
     with torch.no_grad():
         unbiased = bvar * (n / max(n - 1, 1))

@@ -25,6 +25,7 @@ relayout moves the compute dtype and not fp32.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -62,11 +63,19 @@ def _phase_gather(k: int) -> np.ndarray:
     return g
 
 
+@functools.lru_cache(maxsize=None)
+def _phase_gather_on(k: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``_phase_gather(k)`` as a tensor, made once per dtype and device: the
+    training step transforms its kernels every step, and a host-to-device
+    copy there would stall the host until the card's queue drains."""
+    return torch.from_numpy(_phase_gather(k)).to(device=device, dtype=dtype)
+
+
 def s2d_conv_kernel(w: torch.Tensor) -> torch.Tensor:
     """(kD,K,K,Ci,Co) 'same' kernel -> s2d form (kD,3,3,4Ci,4Co), K in {3,5}."""
     kd, kh, kw, ci, co = w.shape
-    gh = torch.from_numpy(_phase_gather(kh)).to(w)
-    gw = torch.from_numpy(_phase_gather(kw)).to(w)
+    gh = _phase_gather_on(kh, w.dtype, w.device)
+    gw = _phase_gather_on(kw, w.dtype, w.device)
     # output memory order z,t,s,(p,x,ci),(q,y,co): phase-major blocks
     w2 = torch.einsum("tpqd,sxye,zdeio->ztspxiqyo", gh, gw, w)
     return w2.reshape(kd, 3, 3, 4 * ci, 4 * co)

@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 (``conv3d_same``), K2 and K3 (``conv3d_same_persample``, forward and
-``transpose_taps``), K4 (``conv3d_dw_persample``) and K5 (``conv3d_dpad``),
-the training path through K2-K4 and the space-to-depth serving routes
-through K1 and K5. Every test needs a CUDA card (the kernels have no CPU mode) and
+``transpose_taps``), K4 (``conv3d_dw_persample``), K5 (``conv3d_dpad``) and
+K6 (``conv3d_tapconcat_persample``), the training path through K2-K4, the
+space-to-depth serving routes through K1 and K5, and the space-to-depth
+training path through K6 and K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
 skips without one. On the card, run this file without the JAX package's
 conftest:
 
@@ -35,6 +36,8 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_same_persample_plain,
     conv3d_same_plain,
+    conv3d_tapconcat_persample,
+    conv3d_tapconcat_persample_plain,
 )
 from repmode_tpu_torch.ops.mode import MergedConvPerSample
 from repmode_tpu_torch.train.state import create_train_state
@@ -107,7 +110,7 @@ def test_kernel_rejects_fp32_compute(cuda):
 
 
 def test_plain_forward_through_kernel_matches_plain_version(cuda, monkeypatch):
-    cfg = ModelConfig(mult_chan=8, depth=3)
+    cfg = ModelConfig(mult_chan=8, depth=3, train_s2d=False)
     net = RepModeNet(cfg, 3, generator=torch.Generator().manual_seed(1), device=cuda).eval()
     plain = reparameterize(net.state_dict(), cfg, 3, 2)
     x = torch.randn((2, 16, 32, 32, 1), generator=torch.Generator().manual_seed(2)).to(cuda)
@@ -208,7 +211,7 @@ def test_merged_conv_backward_launches_k3_and_k4(cuda):
 def test_train_step_runs_through_the_per_sample_kernels(cuda):
     """A small bf16 train step on the card: every MoDE conv's forward, dx
     (but the first conv's) and dW run through K2, K3 and K4; K1 is not used."""
-    cfg = Config(model=ModelConfig(mult_chan=4, depth=2),
+    cfg = Config(model=ModelConfig(mult_chan=4, depth=2, train_s2d=False),
                  data=DataConfig(adopted_datasets=("dna", "lamin_b1")), train=TrainConfig())
     state = create_train_state(cfg, torch.Generator().manual_seed(3), cuda)
     step = make_train_step(cfg, state)
@@ -302,7 +305,7 @@ def test_dpad_kernel_refuses_other_geometry(cuda, bad):
 
 
 def s2d_net(cuda):
-    cfg = ModelConfig(mult_chan=32, depth=2)
+    cfg = ModelConfig(mult_chan=32, depth=2, train_s2d=False)
     net = RepModeNet(cfg, 2, generator=torch.Generator().manual_seed(7), device=cuda).eval()
     g = torch.Generator().manual_seed(8)
     with torch.no_grad():
@@ -346,3 +349,123 @@ def test_two_phase_equals_fused_on_the_card(cuda):
     assert conv3d_dpad.launches > before
     two = TiledPredictor(c, mode="two_phase")(plain, vol)
     assert torch.isfinite(fused).all() and torch.equal(fused, two)
+
+
+# ----------------------------------------------- the tap-concat entry conv K6
+
+# (N, D, H, W, Co): the full-width training shape (K6's main use), W below
+# the 128-position tile with H not a multiple of its rows, W above it with a
+# partial tile, Co below 8, Co above one 128-wide block
+K6_CASES = [
+    (8, 32, 64, 64, 128),
+    (2, 4, 8, 8, 8),
+    (3, 5, 12, 20, 24),
+    (1, 3, 2, 130, 4),
+    (2, 6, 6, 16, 136),
+]
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_tapconcat_kernel_matches_plain(cuda, case):
+    n, d, h, w, co = case
+    g = torch.Generator().manual_seed(hash(case) % 2**31)
+    bf = torch.bfloat16
+    x = torch.randn((n, d, h, w, 4), generator=g).to(cuda, bf)
+    wn = (torch.randn((n, 180, co), generator=g) / 180 ** 0.5).to(cuda, bf)
+    before = conv3d_tapconcat_persample.launches
+    y = conv3d_tapconcat_persample(x, wn)
+    torch.cuda.synchronize()
+    assert conv3d_tapconcat_persample.launches == before + 1
+    idx = [0, n - 1]  # samples are independent: two keep the fp64 check cheap
+    ref = conv3d_tapconcat_persample_plain(x[idx].double(), wn[idx].double())
+    assert y.shape == (n, d, h, w, co) and y.dtype == bf
+    assert within_tolerance(y[idx], ref), (y[idx].double() - ref).abs().max().item()
+
+
+def test_tapconcat_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 2, 4, 4, 4), device=cuda)
+    wn = torch.zeros((1, 180, 8), device=cuda)
+    before = conv3d_tapconcat_persample.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv3d_tapconcat_persample(x, wn)  # fp32 compute
+    with pytest.raises(ValueError, match="4-channel"):
+        conv3d_tapconcat_persample(torch.zeros((1, 2, 4, 4, 8), device=cuda, dtype=torch.bfloat16),
+                                   torch.zeros((1, 360, 8), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="taps"):
+        conv3d_tapconcat_persample(x.bfloat16(), torch.zeros((1, 108, 8), device=cuda))
+    assert conv3d_tapconcat_persample.launches == before
+
+
+# the s2d training convs at 45 taps: level 1 (w' = 64, two rows per tile) and
+# the level-2 decoder concat (4Ci = 512)
+S2D_PS_CASES = [
+    (2, 4, 16, 64, 128, 128, (5, 3, 3)),
+    (2, 3, 8, 32, 512, 256, (5, 3, 3)),
+]
+
+
+@pytest.mark.parametrize("case", S2D_PS_CASES)
+def test_merged_conv_at_s2d_shapes(cuda, case):
+    """MergedConvPerSample at 45-tap s2d shapes: y (K2), dx (K3), dW (K4)."""
+    x, wk, dy, taps = ps_operands(case, cuda)
+    x.requires_grad_()
+    wk.requires_grad_()
+    y = MergedConvPerSample.apply(x, wk)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    xd, wd = x.detach().double(), wk.detach().double()
+    assert within_tolerance(y.detach(), conv3d_same_persample_plain(xd, wd))
+    assert within_tolerance(x.grad, conv3d_same_persample_plain(dy.double(), wd,
+                                                                 transpose_taps=True))
+    # dW is summed in fp32 and returned in the kernels' dtype (bf16), as in JAX
+    assert wk.grad.dtype == torch.bfloat16
+    assert within_tolerance(wk.grad, conv3d_dw_persample_plain(xd, dy.double(), *taps))
+
+
+def test_s2d_train_step_at_full_width(cuda):
+    """One full-width bf16 train step in the s2d layout (the default Config,
+    batch 8 of 32x128x128): K6 once, K2 and K3 17 times, K4 18 times, a
+    finite loss and a finite gradient for every parameter."""
+    tasks = ("dna", "lamin_b1", "tom20", "zo1")
+    cfg = Config(data=DataConfig(adopted_datasets=tasks))
+    assert cfg.model.train_s2d and cfg.model.mult_chan == 32
+    state = create_train_state(cfg, torch.Generator().manual_seed(5), cuda)
+    step = make_train_step(cfg, state)
+    g = torch.Generator().manual_seed(6)
+    sig = torch.randn((8, 32, 128, 128, 1), generator=g)
+    batch = {"signal": sig.to(cuda), "target": (0.5 * sig).to(cuda),
+             "task": (torch.arange(8) % 4).int().to(cuda)}
+    counters = lambda: (conv3d_tapconcat_persample.launches, conv3d_same_persample.launches,
+                        conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches,
+                        conv3d_same.launches)
+    before = counters()
+    m = step(batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counters(), before)) == (1, 17, 17, 18, 0)
+    assert torch.isfinite(m["loss"])
+    for name, p in state.net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_s2d_eval_net_runs_the_expert_sum_through_k1(cuda, monkeypatch):
+    """The eval-mode net in the s2d layout (mult_chan 8: levels 1 and 2; bf16
+    compute, which K1 needs) under no_grad: five K1 launches per s2d or
+    native MoDE conv, the tap-major conv_out, and the output against the
+    same net with the plain conv."""
+    from repmode_tpu_torch.ops import mode as mode_ops
+
+    net = RepModeNet(ModelConfig(mult_chan=8, depth=2), 2, compute_dtype="bfloat16",
+                     generator=torch.Generator().manual_seed(9), device=cuda).eval()
+    x = torch.randn((2, 8, 32, 32, 1), generator=torch.Generator().manual_seed(10)).to(cuda)
+    task = torch.tensor([1, 1], device=cuda)
+    before = conv3d_same.launches
+    with torch.no_grad():
+        y = net(x, task)
+        torch.cuda.synchronize()
+        launches = conv3d_same.launches - before
+        monkeypatch.setattr(mode_ops, "conv3d_same", conv3d_same_plain)
+        ref = net(x, task)
+    assert launches == 5 * (4 * 2 + 2)  # conv_out runs tap-major, without K1
+    assert y.shape == ref.shape == (2, 8, 32, 32, 1) and torch.isfinite(y).all()
+    assert float((y - ref).norm() / ref.norm()) <= 1e-2
+

@@ -53,7 +53,8 @@ def to_ncdhw(y):
 def golden():
     z = np.load(GOLDEN)
     sd = {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd.")}
-    net = RepModeNet(ModelConfig(mult_chan=2, depth=4), NUM_TASKS, device="cpu").double()
+    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_s2d=False), NUM_TASKS,
+                     device="cpu").double()
     net.load_state_dict(sd, strict=True)
     return z, sd, net.eval()
 
@@ -84,8 +85,8 @@ def test_train_mode_forward_raises(golden):
     """The train-mode forward runs the MoDE route ``train_impl`` names and
     raises for a name it does not know (eval mode does not read it)."""
     z, sd, _ = golden
-    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_impl="vmapped"), NUM_TASKS,
-                     device="cpu").double()
+    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_impl="vmapped", train_s2d=False),
+                     NUM_TASKS, device="cpu").double()
     net.load_state_dict(sd, strict=True)
     with pytest.raises(ValueError, match="train_impl"):
         net.train()(ndhwc(z["x"]), torch.from_numpy(z["tasks_uniform"]))
@@ -113,7 +114,7 @@ def test_load_reference_checkpoint(tmp_path, golden):
     assert out["count_epoch"] == 7 and out["count_iter"] == 123
     assert out["adopted_datasets"] == ["task0", "task1", "task2"]
     assert out["state_dict"]["conv_out.gate.weight"].dtype == torch.float32
-    net = RepModeNet(ModelConfig(mult_chan=2, depth=4), NUM_TASKS, device="cpu")
+    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_s2d=False), NUM_TASKS, device="cpu")
     net.load_state_dict(out["state_dict"], strict=True)
 
 
@@ -158,7 +159,7 @@ def test_eval_forward_matches_jax_fp32(jax_net):
     ref = jax.jit(functools.partial(net.apply, train=False))(
         variables, jnp.asarray(x), jnp.asarray(tasks))
     assert np.std(np.asarray(ref)) > 1e-3  # the test net is not degenerate
-    port = RepModeNet(ModelConfig(mult_chan=2, depth=2), NUM_TASKS, device="cpu")
+    port = RepModeNet(ModelConfig(mult_chan=2, depth=2, train_s2d=False), NUM_TASKS, device="cpu")
     port.load_state_dict(from_jax_variables(variables), strict=True)
     with torch.no_grad():
         y = port.eval()(torch.from_numpy(x), torch.from_numpy(tasks))

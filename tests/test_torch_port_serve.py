@@ -59,7 +59,8 @@ def test_tiled_predictor_matches_jax(jax_variables, batch):
     jcfg = JaxConfig(model=jcfg_model, data=JaxDataConfig(adopted_datasets=TASKS),
                      train=JaxTrainConfig(batch_size_eval=batch, compute_dtype="float32"),
                      eval=JaxEvalConfig(s2d=False, **kw))
-    cfg = Config(model=ModelConfig(mult_chan=2, depth=2), data=DataConfig(adopted_datasets=TASKS),
+    cfg = Config(model=ModelConfig(mult_chan=2, depth=2, train_s2d=False),
+                 data=DataConfig(adopted_datasets=TASKS),
                  train=TrainConfig(batch_size_eval=batch, compute_dtype="float32"),
                  eval=EvalConfig(s2d=False, **kw))
     vol = np.random.default_rng(7).standard_normal((16, 24, 24)).astype(np.float32)
@@ -86,7 +87,8 @@ def test_make_inference_refuses_s2d():
     """make_inference no longer refuses s2d: the default Config (eval.s2d=True,
     the JAX package's default) takes the space-to-depth route, and prepare
     emits s2d-shaped params."""
-    cfg = Config(model=ModelConfig(mult_chan=2, depth=2), data=DataConfig(adopted_datasets=TASKS))
+    cfg = Config(model=ModelConfig(mult_chan=2, depth=2, train_s2d=False),
+                 data=DataConfig(adopted_datasets=TASKS))
     assert cfg.eval.s2d
     prepare, forward = make_inference(cfg)
     assert forward.func is plain_forward_s2d and forward.keywords["s2d_levels"] == (1, 2)
@@ -142,7 +144,7 @@ def test_volume_store_loads_a_jax_manifest(tmp_path):
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory):
     """A reference-layout .p of a seeded port net (mult_chan 2, depth 4)."""
-    net = RepModeNet(ModelConfig(mult_chan=2), len(TASKS),
+    net = RepModeNet(ModelConfig(mult_chan=2, train_s2d=False), len(TASKS),
                      generator=torch.Generator().manual_seed(0), device="cpu")
     path = str(tmp_path_factory.mktemp("ckpt") / "model_best.p")
     torch.save({"nn_module": "RepMode",

@@ -82,8 +82,8 @@ def golden():
 
 
 def golden_net(sd, impl):
-    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_impl=impl), len(TASKS),
-                     device="cpu")
+    net = RepModeNet(ModelConfig(mult_chan=2, depth=4, train_impl=impl, train_s2d=False),
+                     len(TASKS), device="cpu")
     net.load_state_dict(sd, strict=True)
     return net.train()
 
@@ -147,7 +147,8 @@ def test_train_step_matches_jax():
     new_state, jm = jax_make_train_step(jcfg, donate=False, tx=_capture_grads())(
         jstate, {k: jnp.asarray(v) for k, v in batch.items()})
 
-    cfg = Config(model=ModelConfig(mult_chan=2, depth=2), data=DataConfig(adopted_datasets=TASKS),
+    cfg = Config(model=ModelConfig(mult_chan=2, depth=2, train_s2d=False),
+                 data=DataConfig(adopted_datasets=TASKS),
                  train=TrainConfig(compute_dtype="float32"))
     net = RepModeNet(cfg.model, len(TASKS), device="cpu")
     net.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, jstate.variables)),
@@ -219,7 +220,7 @@ def test_sampler_matches_jax_numpy_path():
 
 def tiny_config(tmp_path, **train):
     return Config(
-        model=ModelConfig(mult_chan=2, depth=2),
+        model=ModelConfig(mult_chan=2, depth=2, train_s2d=False),
         data=DataConfig(adopted_datasets=("dna", "lamin_b1")),
         train=TrainConfig(num_epochs=2, batch_size=2, patch_size=(16, 16, 16), interval_val=1,
                           **train),
