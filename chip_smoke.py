@@ -21,13 +21,22 @@ kernels):
   train_kernel  K2 (per-sample conv), K3 (its transpose, the dx) and K4 (the
                 per-sample dW) at each MoDE conv shape of training at batch
                 8, each held against its plain version in fp64 and timed
-                beside it, a cuDNN yardstick and its bound;
+                beside it, a cuDNN yardstick and its bound; K4's launch plan
+                at each shape (instance, tile, position groups, splits,
+                registers a thread);
   train         cli.train --synthetic on the card (the training path: K2-K4
                 launch counts are read from this run; K1 runs in val/test);
   train_step    the full-width train step's time, its device profile, and
                 the gate-merge einsums' time;
   train_check   one bf16 step through the merged route against the same step
-                through the expert-sum route (plain convs);
+                through the expert-sum route (its convs through
+                conv3d_same_autograd);
+  train_faults  cli.train --synthetic --train_impl expert_sum for one step at
+                full width (no K1 launch in the step, every parameter
+                changes), then one full-width native step with remat beside
+                one without, from the same weights and batch (equal
+                gradients, K2 twice as often under remat, peak memory of
+                both);
   s2d_kernel    K5 (the depth-padded conv chain of the space-to-depth serving
                 levels) at each of its conv shapes at batch 8, held against
                 its plain version in fp64 with exact-zero halo rows, timed
@@ -82,12 +91,12 @@ from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
-from repmode_tpu_torch.ops import mode as mode_ops
 from repmode_tpu_torch.ops.conv3d import (
     conv3d_dpad,
     conv3d_dpad_plain,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
+    conv3d_dw_persample_plan,
     conv3d_same,
     conv3d_same_persample,
     conv3d_same_persample_plain,
@@ -543,9 +552,11 @@ def train_kernel_phase(convs, phase="train_kernel"):
             plain_ms = cuda_ms(r["plain"], reps=3, warmup=1)
             library_ms = cuda_ms(r["library"], reps=5, warmup=1)
             bound_ms, bound_by = bound(flops, r["nbytes"])
+            plan = ({"plan": conv3d_dw_persample_plan(cv["x"], co, taps)}
+                    if name == "conv3d_dw_persample" else {})
             emit({"phase": phase, "kernel": name, "convs": cv["names"],
                   "launches_per_step": r["count"], "x": list(cv["x"]), "co": co,
-                  "taps": list(taps),
+                  "taps": list(taps), **plan,
                   "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "library_call": r["library_call"], "bound_ms": bound_ms, "bound_by": bound_by,
                   "tflops": flops / kernel_ms / 1e9, "max_abs_err": max_abs, "max_abs_ref": top,
@@ -643,15 +654,18 @@ def hold_gradients(phase, losses, grads, a, b, ref, **extra):
           f"{phase}: gradients of {low} differ beyond the bf16 rounding of {b}")
 
 
-def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
-    """cli.train --synthetic at full width: 4 tasks x 2 volumes = one mixed
-    batch of 8 per epoch, val and the best checkpoint after the last epoch,
-    its reload and the test pass. Returns the launch counts of the run."""
+def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3, impl="auto", phase="train"):
+    """cli.train --synthetic --train_impl <impl> at full width: 4 tasks x 2
+    volumes = one mixed batch of 8 per epoch, val and the best checkpoint
+    after the last epoch, its reload and the test pass. The merged route
+    launches K2/K3/K4 19/18/19 times a step, the expert sum none of them;
+    K1 runs in val and test only. Returns the launch counts of the run."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    per_step = ((num_convs, num_convs - 1, num_convs) if impl != "expert_sum" else (0, 0, 0))
     try:
         exp_dir = os.path.join(tmp, "train")
         argv = ["--synthetic", "--adopted_datasets", *tasks, "--num_epochs", str(epochs),
-                "--interval_val", str(epochs), "--path_exp_dir", exp_dir]
+                "--interval_val", str(epochs), "--path_exp_dir", exp_dir, "--train_impl", impl]
         reset_counts()
         t0 = time.perf_counter()
         res = train_cli.main(argv)
@@ -670,8 +684,8 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
         # 2 volumes per task in val and in test, one 32x128x128 patch each:
         # one predictor batch of 8 per volume, num_convs K1 launches per batch
         k1_expected = 2 * (2 * len(tasks)) * num_convs
-        out = {"phase": "train", "seconds": secs, "tasks": list(tasks), "epochs": epochs,
-               "steps": steps, "launches": counts,
+        out = {"phase": phase, "train_impl": impl, "seconds": secs, "tasks": list(tasks),
+               "epochs": epochs, "steps": steps, "launches": counts,
                "launches_per_step": {k: counts[k] / steps for k in
                                      ("conv3d_same_persample", "conv3d_same_persample_transpose",
                                       "conv3d_dw_persample")},
@@ -680,17 +694,18 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3):
                "test_mse": res["test_log"]["metric_test/MSE"],
                "best_path": os.path.basename(res["best_path"] or ""), **report}
         emit(out)
-        check(steps == epochs, f"train: {steps} steps, expected {epochs}")
-        check(counts["conv3d_same_persample"] == num_convs * steps, "train: K2 launches != 19/step")
-        check(counts["conv3d_same_persample_transpose"] == (num_convs - 1) * steps,
-              "train: K3 launches != 18/step")
-        check(counts["conv3d_dw_persample"] == num_convs * steps, "train: K4 launches != 19/step")
-        check(counts["conv3d_same"] == k1_expected, "train: K1 launches in val/test")
+        check(steps == epochs, f"{phase}: {steps} steps, expected {epochs}")
+        for k, v in zip(("conv3d_same_persample", "conv3d_same_persample_transpose",
+                         "conv3d_dw_persample"), per_step):
+            check(counts[k] == v * steps, f"{phase}: {k} launched {counts[k]} times in {steps} "
+                                          f"steps, expected {v} per step")
+        # K1 launches in val/test only: none in the train steps
+        check(counts["conv3d_same"] == k1_expected, f"{phase}: K1 launches outside val/test")
         check(abs(out["train_loss"]) < float("inf") and out["train_loss"] == out["train_loss"],
-              "train: non-finite loss")
-        check_params("train", report)
-        check(res["best_path"] is not None, "train: no best checkpoint")
-        check(all(os.path.exists(p) for p in csvs), "train: metric CSVs missing")
+              f"{phase}: non-finite loss")
+        check_params(phase, report)
+        check(res["best_path"] is not None, f"{phase}: no best checkpoint")
+        check(all(os.path.exists(p) for p in csvs), f"{phase}: metric CSVs missing")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return counts
@@ -761,9 +776,9 @@ def train_step_phase(convs, num_tasks, steps=6):
 def train_check_phase(num_tasks):
     """One full-width forward+backward, batch 8, from the same weights on the
     same batch, three ways: the merged route in bf16 (K2-K4), the expert-sum
-    route in bf16 and the expert-sum route in fp32 (both with plain convs: K1
-    has no backward). The merged route is held to the bf16 expert sum by
-    ``hold_gradients``."""
+    route in bf16 and the expert-sum route in fp32 (both with their convs
+    through conv3d_same_autograd). The merged route is held to the bf16
+    expert sum by ``hold_gradients``."""
     cfg = Config(model=ModelConfig(train_s2d=False),
                  data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
     batch = full_width_batch(num_tasks, seed=SEED + 30)
@@ -780,9 +795,8 @@ def train_check_phase(num_tasks):
                 m.train_impl = impl
         net.zero_grad(set_to_none=True)
         torch.cuda.reset_peak_memory_stats()
-        with mock.patch.object(mode_ops, "conv3d_same", conv3d_same_plain):
-            loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
-            loss.backward()
+        loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
+        loss.backward()
         losses[run] = float(loss.detach())
         peaks[run] = torch.cuda.max_memory_allocated() / 1e9
         grads[run] = {k: v.grad.detach().double() for k, v in net.named_parameters()}
@@ -794,6 +808,67 @@ def train_check_phase(num_tasks):
                    peak_memory_gb=peaks)
     del state, net, grads
     torch.cuda.empty_cache()
+
+
+def train_remat_check(num_tasks):
+    """One full-width native forward+backward (batch 8, bf16) with remat and
+    one without, from the same weights on the same batch: each gradient
+    bit-identical or within K4's tolerance (max|a-b| <= 1e-3 max|b|), K2
+    launched twice as often under remat (the backward recomputes the
+    forward), K3 and K4 as often; peak memory of both."""
+    batch = full_width_batch(num_tasks, seed=SEED + 70)
+    state = create_train_state(s2d_config(num_tasks, train_s2d=False),
+                               torch.Generator().manual_seed(SEED + 71), "cuda").net.state_dict()
+    state = {k: v.clone() for k, v in state.items()}
+    grads, losses, peaks, counts = {}, {}, {}, {}
+    for remat in (False, True):
+        net = RepModeNet(s2d_config(num_tasks, train_s2d=False, remat=remat).model, num_tasks,
+                         compute_dtype="bfloat16", device="cuda")
+        net.load_state_dict(state, strict=True)
+        net.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
+        counts[remat] = kernel_counts()
+        losses[remat] = float(loss.detach())
+        grads[remat] = {k: v.grad.detach().clone() for k, v in net.named_parameters()}
+        del net, loss
+        torch.cuda.empty_cache()
+    g0, g1 = grads[False], grads[True]
+    identical = sum(bool(torch.equal(g0[k], g1[k])) for k in g0)
+    worst = max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp_min(1e-30))
+                for k in g0)
+    out = {"phase": "train_faults_remat", "losses": {str(k): v for k, v in losses.items()},
+           "peak_memory_gb": {"remat": peaks[True], "no_remat": peaks[False]},
+           "launches": {"remat": counts[True], "no_remat": counts[False]},
+           "tensors": len(g0), "tensors_bit_identical": identical,
+           "max_rel_grad_diff": worst,
+           "tolerance": "each gradient bit-identical or max|a-b| <= 1e-3 max|b|"}
+    emit(out)
+    check(abs(losses[True] - losses[False]) <= 1e-6 * abs(losses[False]),
+          "train_faults: remat changed the loss")
+    check(worst <= 1e-3, "train_faults: remat changed a gradient")
+    for k, factor in (("conv3d_same_persample", 2), ("conv3d_same_persample_transpose", 1),
+                      ("conv3d_dw_persample", 1)):
+        check(counts[False][k] > 0 and counts[True][k] == factor * counts[False][k],
+              f"train_faults: {k} launched {counts[True][k]} times under remat, "
+              f"{counts[False][k]} without")
+    check(counts[True]["conv3d_same"] == counts[False]["conv3d_same"] == 0,
+          "train_faults: K1 launched in a train step")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def train_faults_phase(num_convs, num_tasks):
+    """The training options that must work on the card as in JAX: one
+    cli.train step through the expert sum, and remat."""
+    train_phase(num_convs, epochs=1, impl="expert_sum", phase="train_faults_expert_sum")
+    torch.cuda.empty_cache()
+    train_remat_check(num_tasks)
 
 # ------------------------------------------------ space-to-depth serving (K5)
 
@@ -1279,7 +1354,7 @@ def train_s2d_check_phase(num_tasks):
     """One full-width forward+backward, batch 8, from the same weights on the
     same batch, three ways: the s2d merged route in bf16 (K6, K2-K4), the
     native merged route in bf16 (K2-K4) and the native expert-sum route in
-    fp32 (plain convs; K1 has no backward). The s2d route is held to the
+    fp32 (conv3d_same_autograd). The s2d route is held to the
     native one by ``hold_gradients``, train_check's rule."""
     batch = full_width_batch(num_tasks, seed=SEED + 60)
     state = create_train_state(s2d_config(num_tasks, train_s2d=False),
@@ -1293,9 +1368,8 @@ def train_s2d_check_phase(num_tasks):
                          num_tasks, compute_dtype=cdt, device="cuda")
         net.load_state_dict(state, strict=True)
         net.train()
-        with mock.patch.object(mode_ops, "conv3d_same", conv3d_same_plain):
-            loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
-            loss.backward()
+        loss = ((net(batch["signal"], batch["task"]) - batch["target"]) ** 2).mean()
+        loss.backward()
         losses[run] = float(loss.detach())
         grads[run] = {k: v.grad.detach().double() for k, v in net.named_parameters()}
         del net, loss
@@ -1331,6 +1405,7 @@ def main(argv=None):
                   "train": lambda: train_phase(len(convs)),
                   "train_step": lambda: train_step_phase(convs, num_tasks=4),
                   "train_check": lambda: train_check_phase(num_tasks=4),
+                  "train_faults": lambda: train_faults_phase(len(convs), num_tasks=4),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -1363,6 +1438,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_step_phase(convs, num_tasks=4)
     train_check_phase(num_tasks=4)
+    torch.cuda.empty_cache()
+    train_faults_phase(len(convs), num_tasks=4)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -78,12 +78,14 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
                    help="device-resident patch pipeline: not ported (A8), 'on' "
                         "raises; auto and off run the host sampler (exact "
                         "reference batching incl. ragged tails)")
-    p.add_argument("--train_impl", default="auto", choices=["auto", "expert_sum"],
-                   help="MoDE conv route of training (ModelConfig.train_impl): auto "
-                        "merges the experts per sample and runs the conv's forward, "
-                        "dx and dW through the port's CUDA kernels (their plain "
-                        "versions on the CPU); expert_sum is the five-conv reference, "
-                        "for the CPU (on the card its shared-kernel conv has no backward)")
+    p.add_argument("--train_impl", default="auto",
+                   choices=["auto", "expert_sum", "merged_pallas", "merged"],
+                   help="MoDE conv route of training (ModelConfig.train_impl), the JAX "
+                        "package's choices: auto, merged_pallas and merged merge the experts "
+                        "per sample and run the conv's forward, dx and dW through the port's "
+                        "CUDA kernels K2, K3 and K4 (K6 for the s2d entry conv; their plain "
+                        "versions on the CPU); expert_sum runs the five-conv sum, its convs "
+                        "through F.conv3d with autograd")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     return p

@@ -15,7 +15,9 @@ Training mode (``net.train()``) is the JAX package's ``train=True``: BN
 normalizes by batch statistics and updates its running stats, and each MoDE
 conv runs the route ``cfg.train_impl`` names: 'auto' (or 'merged',
 'merged_pallas') the per-sample merged kernels (``mode_conv_merged_persample``:
-K2 forward, K3 dx, K4 dW on the card), 'expert_sum' the reference. Eval mode
+K2 forward, K3 dx, K4 dW on the card), 'expert_sum' the reference (its
+shared-kernel convs through ``conv3d_same_autograd``). With ``cfg.remat`` the
+train-mode MoDE conv op runs under ``torch.utils.checkpoint``. Eval mode
 runs the expert sum with running-stat BN. The bf16 policy is the JAX
 package's: in training a conv's output is rounded to the compute dtype before
 BN, and every MoDE conv stores its post-ReLU output in the compute dtype.
@@ -44,6 +46,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repmode_tpu_torch.config import ModelConfig
 from repmode_tpu_torch.device import DeviceLike, resolve_device
@@ -130,6 +133,7 @@ class MoDEConv(nn.Module):
         train_impl: str = "auto",
         s2d: bool = False,
         input_channel_sizes: tuple = (),
+        remat: bool = False,
     ):
         super().__init__()
         if conv_type not in ("normal", "final"):
@@ -141,6 +145,7 @@ class MoDEConv(nn.Module):
         self.compute_dtype = compute_dtype
         self.train_impl = train_impl
         self.s2d = s2d
+        self.remat = remat
         self.input_channel_sizes = tuple(input_channel_sizes)
         g = generator
         self.expert_conv5x5_conv = nn.Parameter(torch_uniform_init((co, ci, 5, 5, 5), ci * 125, g))
@@ -190,7 +195,14 @@ class MoDEConv(nn.Module):
     def forward(self, x: torch.Tensor, task_emb: torch.Tensor) -> torch.Tensor:
         logits = F.linear(task_emb.to(self.gate.weight.dtype), self.gate.weight, self.gate.bias)
         g = gate_logits_to_weights(logits, self.num_experts, self.out_chan)
-        y = self._op()(x, self.experts(), g, compute_dtype=self.compute_dtype)
+        op = self._op()
+        if self.remat and self.training:
+            # JAX's jax.checkpoint: the backward recomputes the gate merge and
+            # the forward conv instead of keeping their intermediates
+            y = checkpoint(op, x, self.experts(), g, compute_dtype=self.compute_dtype,
+                           use_reentrant=False)
+        else:
+            y = op(x, self.experts(), g, compute_dtype=self.compute_dtype)
         if self.training and self.compute_dtype is not None:
             y = y.to(self.compute_dtype)  # conv output in bf16 before BN, as in JAX
         if self.conv_type == "normal":
@@ -212,7 +224,7 @@ class MoDESubNet2Conv(nn.Module):
         common = dict(
             kernel_size=cfg.kernel_size, bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps,
             compute_dtype=compute_dtype, generator=generator, train_impl=cfg.train_impl,
-            s2d=s2d,
+            s2d=s2d, remat=cfg.remat,
         )
         self.conv1 = MoDEConv(num_experts, num_tasks, n_in, n_out,
                               input_channel_sizes=input_channel_sizes, **common)
@@ -331,7 +343,7 @@ class RepModeNet(nn.Module):
         self.conv_out = MoDEConv(
             e, t, c, cfg.out_channels, kernel_size=cfg.kernel_size, conv_type="final",
             compute_dtype=cdt, generator=generator, train_impl=cfg.train_impl,
-            s2d=1 in self.s2d_levels,
+            s2d=1 in self.s2d_levels, remat=cfg.remat,
         )
         self.to(dev)
 

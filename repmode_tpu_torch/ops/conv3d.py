@@ -25,6 +25,10 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
 (and ``conv3d_same_persample.transpose_launches`` those of K3).
 
+``conv3d_same_autograd`` is no kernel port: it is the XLA conv of the JAX
+package's differentiated expert sum as a plain PyTorch op (``F.conv3d``,
+autograd gives the backward), the train-mode counterpart of K1.
+
 The k=2, s=2 down/upsample convs have non-overlapping windows, so they are
 reshapes around one matrix product, as in the JAX package; so is the
 tap-major ``conv3d_same_tapmajor`` of the s2d ``conv_out``.
@@ -32,6 +36,7 @@ tap-major ``conv3d_same_tapmajor`` of the s2d ``conv_out``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -116,8 +121,9 @@ def conv3d_same(
     ):
         raise RuntimeError(
             "conv3d_same: the CUDA kernel has no backward, and an input requires grad; "
-            "train through the per-sample merged route (train_impl 'auto'), or run "
-            "this conv under torch.no_grad()"
+            "train through conv3d_same_autograd (as train_impl 'expert_sum' does) or the "
+            "per-sample merged route (train_impl 'auto'), or run this conv under "
+            "torch.no_grad()"
         )
     y = _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype)
     conv3d_same.launches += 1
@@ -125,6 +131,28 @@ def conv3d_same(
 
 
 conv3d_same.launches = 0
+
+
+def conv3d_same_autograd(
+    x: torch.Tensor, w: torch.Tensor, *, compute_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """'same' stride-1 3-D conv on a differentiated path: the port of the XLA
+    op ``repmode_tpu/ops/conv3d.py:conv3d_same`` with ``accum_dtype=None``.
+
+    x: (N,D,H,W,Ci), w: (kD,kH,kW,Ci,Co) with odd taps -> (N,D,H,W,Co). Both
+    are rounded to ``compute_dtype`` (without one, to their common dtype) and
+    the output is in that dtype, as JAX's AD-safe conv rounds its output.
+    ``F.conv3d`` runs on an NCDHW view of x (channels_last_3d in memory, no
+    copy) and autograd gives the backward, on any device.
+    """
+    dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
+    kd, kh, kw = w.shape[:3]
+    y = F.conv3d(
+        x.to(dt).permute(0, 4, 1, 2, 3),
+        w.to(dt).permute(4, 3, 0, 1, 2),
+        padding=((kd - 1) // 2, (kh - 1) // 2, (kw - 1) // 2),
+    )
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tensor:
@@ -417,8 +445,9 @@ def conv3d_dw_persample(
     x: (N,D,H,W,Ci), dy: (N,D,H,W,Co) -> (N,kD,kH,kW,Ci,Co). On a CUDA
     tensor: the bf16 tensor-core kernel on the current stream (one kernel,
     plus a pass that adds its per-split partial sums in a fixed order where
-    the positions are split; no atomics). On a CPU tensor: the plain version.
-    ``conv3d_dw_persample.launches`` counts launches.
+    the positions are split; no atomics). Its instance follows from the
+    packed channel counts (``conv3d_dw_persample_plan``). On a CPU tensor:
+    the plain version. ``conv3d_dw_persample.launches`` counts launches.
     """
     if x.device.type == "cpu":
         return conv3d_dw_persample_plain(x, dy, kd, kh, kw, compute_dtype=compute_dtype)
@@ -461,15 +490,41 @@ def _conv3d_dw_persample_cuda(x, dy, kd, kh, kw, compute_dtype) -> torch.Tensor:
     return _dw_unpack(out, ci, co, kw)
 
 
+def conv3d_dw_persample_plan(x_shape, co: int, taps) -> dict:
+    """The launch K4 makes for x (N,D,H,W,Ci), Co channels of dy and taps
+    (kD,kH,kW): instance (wide or narrow), block tile, position groups,
+    splits, and the kernel's registers and local (spill) bytes a thread as
+    compiled. Builds the kernel if needed; needs the card."""
+    n, d, h, wl, ci = x_shape
+    kd, kh, kw = taps
+    cip, cop, kw_k = _dw_packed_dims(ci, co, kw)
+    out = (ctypes.c_int * 9)()
+    lib = build.load("conv3d_dw_persample")
+    err = lib.conv3d_dw_persample_plan(n, d, h, wl, cip, cop, kd, kh, kw_k, out)
+    if err != 0:
+        msg = lib.conv3d_dw_persample_error_string(err).decode()
+        raise RuntimeError(f"conv3d_dw_persample_plan: {msg}")
+    keys = ("wide", "taps_per_block", "tile_i", "tile_o", "position_groups", "splits",
+            "registers", "local_bytes", "shared_bytes")
+    return {"packed": [cip, cop, kw_k], **dict(zip(keys, out))}
+
+
+def _dw_packed_dims(ci: int, co: int, kw: int):
+    """(Ci, Co, kW) of the problem ``_dw_operands`` hands the kernel."""
+    if ci % 8 and kw > 1 and kw * ci <= 32:
+        ci, kw = kw * ci, 1
+    return -(-ci // 8) * 8, -(-co // 8) * 8, kw
+
+
 def _dw_operands(x: torch.Tensor, dy: torch.Tensor, kw: int):
     """Give K4 channel counts that are multiples of 8: a narrow input (the
     1-channel input conv) gets its kW taps packed into channels, so its dW
     comes out as (kD,kH,1,kW*Ci) and is unpacked by ``_dw_unpack``; other
     counts are zero-padded. Returns (x, dy, kW of the packed problem)."""
-    ci = x.shape[-1]
-    if ci % 8 and kw > 1 and kw * ci <= 32:
-        x, kw = _pack_w_taps(x, kw), 1
-    return F.pad(x, (0, -x.shape[-1] % 8)), F.pad(dy, (0, -dy.shape[-1] % 8)), kw
+    cip, cop, kw_k = _dw_packed_dims(x.shape[-1], dy.shape[-1], kw)
+    if kw_k != kw:
+        x = _pack_w_taps(x, kw)
+    return F.pad(x, (0, cip - x.shape[-1])), F.pad(dy, (0, cop - dy.shape[-1])), kw_k
 
 
 def _dw_unpack(out: torch.Tensor, ci: int, co: int, kw: int) -> torch.Tensor:

@@ -126,6 +126,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "conv3d_dw_persample":
         lib.conv3d_dw_persample_splits.argtypes = [i32] * 9
         lib.conv3d_dw_persample_splits.restype = i32
+        lib.conv3d_dw_persample_plan.argtypes = [i32] * 9 + [ctypes.POINTER(i32)]
+        lib.conv3d_dw_persample_plan.restype = i32
         lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
         lib.conv3d_dw_persample_bf16.restype = i32
     elif name == "conv3d_dpad":

@@ -16,7 +16,9 @@ kernel (``merge_kernels``). Three executions of that one function:
                  bank and gate), then ``MergedConvPerSample`` runs the conv
                  with a hand-written forward (K2), dx (K3) and dW (K4) on the
                  card, their plain versions on the CPU;
-  mode_conv_expert_sum  the reference: five shared-kernel convs, combined;
+  mode_conv_expert_sum  the reference: five shared-kernel convs, combined
+                 (``_expert_conv``: K1 without grad, ``conv3d_same_autograd``
+                 under it);
   mode_conv_single      one merged kernel for a task-uniform batch; the
                  re-parameterized serving net (models/reparam.py) merges once
                  per task and runs this.
@@ -40,6 +42,7 @@ from repmode_tpu_torch.ops.conv3d import (
     avg_pool_same,
     conv3d_dw_persample,
     conv3d_same,
+    conv3d_same_autograd,
     conv3d_same_persample,
     conv3d_tapconcat_persample,
 )
@@ -101,6 +104,19 @@ def merge_kernels(ek: ExpertKernels, g: torch.Tensor, kernel_size: int = 5) -> t
     return torch.einsum("neo,edhwio->ndhwio", g.to(bank.dtype), bank)
 
 
+def _expert_conv(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """One shared-kernel expert conv, fp32 sums out (fp64 stays fp64).
+
+    Where autograd records it (grad enabled, x or w requiring grad):
+    ``conv3d_same_autograd``, its output widened; otherwise ``conv3d_same``
+    (K1 on the card). A choice by what the call needs, not a fallback.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = conv3d_same_autograd(x, w, compute_dtype=compute_dtype)
+        return y.to(torch.promote_types(y.dtype, torch.float32))
+    return conv3d_same(x, w, compute_dtype=compute_dtype)
+
+
 def mode_conv_expert_sum(
     x: torch.Tensor,
     ek: ExpertKernels,
@@ -112,18 +128,18 @@ def mode_conv_expert_sum(
     (N,D,H,W,Co) in the accumulation dtype (fp32, or fp64 for fp64 inputs).
 
     Equals conv(x_n, merge_kernels(ek, g)[n]) by linearity. The pools run in
-    the accumulation dtype; each expert conv rounds its inputs to
-    ``compute_dtype`` and returns fp32 sums; the combine runs in fp32 (the
-    JAX package combines in the compute dtype; this is the more exact of
-    the two). Autograd runs through it where the convs have a backward: the
-    plain convs on the CPU; on the card the shared-kernel conv raises under
-    grad (its kernel has no backward).
+    the accumulation dtype; each expert conv (``_expert_conv``) rounds its
+    inputs to ``compute_dtype``; the combine runs in fp32 (the JAX package
+    combines in the compute dtype; this is the more exact of the two).
+    Under autograd the convs run through ``conv3d_same_autograd`` and, as
+    in JAX, round their outputs to the compute dtype; without it they run
+    K1 on the card.
     """
     xa = x.to(torch.promote_types(x.dtype, torch.float32))
     pooled3 = avg_pool_same(xa, 3)
     pooled5 = avg_pool_same(xa, 5)
     ys = [
-        conv3d_same(inp, w, compute_dtype=compute_dtype)
+        _expert_conv(inp, w, compute_dtype)
         for inp, w in (
             (x, ek.w5), (x, ek.w3), (x, ek.w1), (pooled3, ek.wa3), (pooled5, ek.wa5)
         )
@@ -265,14 +281,14 @@ def mode_conv_expert_sum_s2d_domain(
     JAX package's two exact forms: composed into dense s2d kernels where a
     segment has fewer than 64 native channels (4*min(channel_sizes) < 256),
     else ``box_pool_s2d`` per segment and a pointwise conv. As in the native
-    expert sum, the pools run in the accumulation dtype, each conv rounds its
-    inputs to ``compute_dtype`` and returns fp32 sums, and the combine is fp32.
+    expert sum, the pools run in the accumulation dtype, each conv is an
+    ``_expert_conv``, and the combine is fp32.
     """
     cs = tuple(channel_sizes) if channel_sizes else (ek.w5.shape[3],)
     ones3, ones5 = _pool_ones(3, ek.wa3), _pool_ones(5, ek.wa5)
 
     def cv(inp, w):
-        return conv3d_same(inp, w, compute_dtype=compute_dtype)
+        return _expert_conv(inp, w, compute_dtype)
 
     ys = [cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w5, cs)),
           cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w3, cs)),

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 (``conv3d_same``), K2 and K3 (``conv3d_same_persample``, forward and
-``transpose_taps``), K4 (``conv3d_dw_persample``), K5 (``conv3d_dpad``) and
-K6 (``conv3d_tapconcat_persample``), the training path through K2-K4, the
+``transpose_taps``), K4 (``conv3d_dw_persample``, its narrow and each of its
+wide instances), K5 (``conv3d_dpad``) and K6
+(``conv3d_tapconcat_persample``), the training path through K2-K4 and, under
+``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
 space-to-depth serving routes through K1 and K5, and the space-to-depth
 training path through K6 and K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
 skips without one. On the card, run this file without the JAX package's
@@ -32,6 +34,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_dpad_plain,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
+    conv3d_dw_persample_plan,
     conv3d_same,
     conv3d_same_persample,
     conv3d_same_persample_plain,
@@ -191,6 +194,56 @@ def test_persample_kernels_are_deterministic(cuda):
                        conv3d_same_persample(dy, wk, transpose_taps=True))
 
 
+# K4's block tiles, one shape each: (N, D, H, W, Ci, Co). The wide instance
+# takes 64x64 (64-position chunks), 64x32 and 32x64 (two position groups,
+# 128-position chunks); 32x32 tiles take the narrow instance. W = 70 gives a
+# full and a partial 64-position row segment, W = 20 six rows a 128-position
+# chunk with H = 7 not a multiple of them, W = 36 three rows, W = 130 three
+# 64-position segments; Ci = 72 and Ci = Co = 40 leave a partial channel tile.
+K4_WIDE_CASES = {
+    "64x64": (2, 3, 7, 70, 64, 128),
+    "64x32": (2, 3, 7, 20, 72, 32),
+    "32x64": (1, 4, 5, 36, 32, 64),
+    "32x32": (2, 3, 9, 130, 40, 40),
+}
+
+
+def check_wide_plan(plan, tile, kw):
+    ti, to = plan["tile_i"], plan["tile_o"]
+    assert plan["taps_per_block"] == kw and f"{ti}x{to}" == tile
+    assert plan["wide"] == (tile != "32x32")
+    assert plan["position_groups"] == (2 if tile in ("64x32", "32x64") else 1)
+
+
+@pytest.mark.parametrize("kw", [1, 3, 5])
+@pytest.mark.parametrize("tile", sorted(K4_WIDE_CASES))
+def test_dw_wide_instances_match_plain(cuda, tile, kw):
+    n, d, h, w, ci, co = K4_WIDE_CASES[tile]
+    taps = (3, 5, kw)
+    check_wide_plan(conv3d_dw_persample_plan((n, d, h, w, ci), co, taps), tile, kw)
+    x, _, dy, _ = ps_operands((n, d, h, w, ci, co, taps), cuda)
+    before = conv3d_dw_persample.launches
+    y = conv3d_dw_persample(x, dy, *taps)
+    torch.cuda.synchronize()
+    assert conv3d_dw_persample.launches == before + 1
+    ref = conv3d_dw_persample_plain(x.double(), dy.double(), *taps)
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("tile", sorted(K4_WIDE_CASES))
+def test_dw_wide_instances_are_deterministic(cuda, tile):
+    """Split positions and position groups add in a fixed order: two
+    launches give the same bits."""
+    ci, co = K4_WIDE_CASES[tile][4:]
+    shape = (2, 8, 32, 64, ci)
+    plan = conv3d_dw_persample_plan(shape, co, (5, 5, 5))
+    check_wide_plan(plan, tile, 5)
+    assert plan["splits"] > 1
+    x, _, dy, taps = ps_operands((*shape, co, (5, 5, 5)), cuda)
+    assert torch.equal(conv3d_dw_persample(x, dy, *taps), conv3d_dw_persample(x, dy, *taps))
+
+
 def test_merged_conv_backward_launches_k3_and_k4(cuda):
     x, wk, dy, _ = ps_operands((2, 3, 5, 20, 16, 24, (5, 5, 5)), cuda)
     x.requires_grad_()
@@ -228,6 +281,30 @@ def test_train_step_runs_through_the_per_sample_kernels(cuda):
     convs = 4 * cfg.model.depth + 3
     assert tuple(a - b for a, b in zip(after, before)) == (0, convs, convs - 1, convs)
     assert torch.isfinite(m["loss"]) and int(m["per_task_count"].sum()) == 2
+    for name, p in state.net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("s2d", [False, True])
+def test_expert_sum_train_step_on_the_card(cuda, s2d):
+    """train_impl 'expert_sum' trains on the card (mult_chan 8, bf16): its
+    convs go through conv3d_same_autograd, so no K1 and no per-sample kernel
+    runs, and every parameter gets a finite gradient."""
+    cfg = Config(model=ModelConfig(mult_chan=8, depth=2, train_s2d=s2d, train_impl="expert_sum"),
+                 data=DataConfig(adopted_datasets=("dna", "lamin_b1")), train=TrainConfig())
+    state = create_train_state(cfg, torch.Generator().manual_seed(11), cuda)
+    step = make_train_step(cfg, state)
+    g = torch.Generator().manual_seed(12)
+    sig = torch.randn((2, 16, 32, 32, 1), generator=g)
+    batch = {"signal": sig.to(cuda), "target": (0.5 * sig).to(cuda),
+             "task": torch.tensor([0, 1], dtype=torch.int32, device=cuda)}
+    counters = lambda: (conv3d_same.launches, conv3d_same_persample.launches,
+                        conv3d_same_persample.transpose_launches, conv3d_dw_persample.launches)
+    before = counters()
+    m = step(batch)
+    torch.cuda.synchronize()
+    assert counters() == before
+    assert torch.isfinite(m["loss"])
     for name, p in state.net.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 

@@ -286,8 +286,8 @@ def test_train_cli_parses_the_ports_flags():
     assert cfg.model.train_impl == "expert_sum" and cfg.model.mult_chan == 4
     assert cfg.train.num_epochs == 3 and cfg.train.interval_val == 3
     assert cfg.data.adopted_datasets == ("dna", "zo1") and not cfg.eval.s2d
-    with pytest.raises(SystemExit):  # the JAX package's TPU route name
-        train_cli.build_parser().parse_args(["--train_impl", "merged_pallas"])
+    with pytest.raises(SystemExit):  # a route neither package has
+        train_cli.build_parser().parse_args(["--train_impl", "pallas"])
 
 
 def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
