@@ -8,10 +8,13 @@ the serving and training paths at full width (mult_chan 32, depth 4, 5^3
 kernels):
 
   build         compile every kernel (one nvcc per source, started together);
+                whether K1's library holds warpgroup MMA (HGMMA in its SASS);
   kernel        K1 (shared-kernel conv) at each conv shape of the serving net
                 at batch 8, held against its plain PyTorch version (TF32 off)
                 and timed beside that version, a cuDNN bf16 conv (yardstick
-                only) and its bound;
+                only) and its bound; K1's launch plan at each shape
+                (instance, tile, KC, stages, shared memory, registers,
+                spills);
   model         the MoDE net in eval mode (12 tasks) against plain_forward of
                 its re-parameterization, on one 32x128x128 patch;
   serve         cli.evaluate on a reference-layout checkpoint and synthetic
@@ -101,6 +104,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_same_persample_plain,
     conv3d_same_plain,
+    conv3d_same_plan,
     conv3d_tapconcat_persample,
     conv3d_tapconcat_persample_plain,
 )
@@ -207,14 +211,36 @@ def per_sample_kernel_ms(kernels):
             "k6_ms": ms_of(lambda nm: "conv3d_tapconcat_kernel" in nm)}
 
 
+def k1_sass_report(ptxas_log):
+    """Whether K1's library was compiled to warpgroup MMA: HGMMA instructions
+    in its SASS (cuobjdump -sass, where the toolkit has it), and the kernels
+    whose wgmma ptxas serialized (its C7513/C7515 notes)."""
+    serialized = sorted({line.split("function '")[-1].rstrip("'")
+                         for line in ptxas_log.splitlines()
+                         if "wgmma.mma_async instructions are serialized" in line})
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"hgmma": None, "note": "not shown: no cuobjdump in this toolkit",
+                "wgmma_serialized_in": serialized}
+    sass = subprocess.run([tool, "-sass", str(build.library_path("conv3d_same"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    return {"hgmma": sum("HGMMA" in line for line in sass.splitlines()),
+            "kernels_with_hgmma": sum("HGMMA" in blk for blk in sass.split("Function : ")[1:]),
+            "wgmma_serialized_in": serialized}
+
+
 def build_phase():
     t0 = time.perf_counter()
     report = build.build(ptxas_verbose=True)
     for name, r in report.items():
         print(f"[{name}] nvcc/ptxas:\n{r['log']}", file=sys.stderr)
+    sass = k1_sass_report(report["conv3d_same"]["log"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
-                      for k, v in report.items()}})
+                      for k, v in report.items()},
+          "conv3d_same_sass": sass})
+    if sass["hgmma"] is not None:
+        check(sass["hgmma"] > 0, "K1's library holds no warpgroup MMA (HGMMA)")
 
 
 def kernel_phase(convs, phase="kernel"):
@@ -286,6 +312,7 @@ def kernel_phase(convs, phase="kernel"):
         kernel_ms = cuda_ms(kernel, reps=10, warmup=2)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(library, reps=10, warmup=2)
+        plan = conv3d_same_plan(cv["x"], co, taps, odt, device=dev)
         flops = 2.0 * n * d * h * w * ntaps * ci * co
         nbytes = (x.numel() * x.element_size() + wk.numel() * 2 + (0 if b is None else co * 4)
                   + n * d * h * w * co * odt.itemsize)
@@ -298,7 +325,12 @@ def kernel_phase(convs, phase="kernel"):
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
               "tflops": flops / kernel_ms / 1e9, "max_abs_err": max_abs, "max_abs_ref": float(top),
-              "tolerance": tol, "ok": ok, "first_violation_ref_kernel": worst})
+              "tolerance": tol, "ok": ok, "first_violation_ref_kernel": worst,
+              "plan": {"instance": plan["instance"], "tile": f"{plan['bm']}x{plan['bn']}",
+                       "m64_tiles_a_warpgroup": plan["mt"], "kc": plan["kc"],
+                       "stages": plan["stages"],
+                       "shared_bytes": plan["smem_bytes"], "blocks": plan["blocks"],
+                       "registers": plan["registers"], "spill_bytes": plan["local_bytes"]}})
         check(ok, f"{cv['names']}: kernel disagrees with the plain version ({max_abs})")
         k = cv["count"]
         totals["ms"] += k * kernel_ms

@@ -6,65 +6,100 @@
 //     y[n,p,o] = act( sum_t sum_i x[n, p + t - c, i] * w[t, i, o] + b[o] )
 //
 // with zero 'same' padding, any odd (kD, kH, kW), NDHWC activations and DHWIO
-// weights (passed as (T, Ci_pad, Co_pad), zero-padded by the caller). x and w
-// are bf16, products are summed in fp32, the epilogue (none / bias /
+// weights (zero-padded by the caller to whole Ci chunks and Co tiles). x and
+// w are bf16, products are summed in fp32, the epilogue (none / bias /
 // bias+ReLU) runs in fp32 and the output is fp32 or bf16.
 //
 // What bounds it: at the serving shapes a conv does ~2*125*Ci*Co operations
 // per output voxel and moves tens of MB, far above the card's ~295
-// operations per byte, so it is bound by tensor-core operations. The 19
-// convs of the serving net cost 1.086 TFLOP per 32x128x128 patch (the
-// largest, decoder_block1.conv1, 64 -> 32 channels at 32x128x128, 0.27
-// TFLOP); a batch of 8 patches is 8.7 TFLOP, at least 8.8 ms at the H100's
-// 989 TFLOP/s dense bf16. Only the first conv (Ci=1) and conv_out (Co=1)
-// are bound by bytes. The design therefore keeps the tensor cores fed from
-// shared memory:
+// operations per byte, so its bound is tensor-core operations. The 19
+// convs of the serving net cost 1.086 TFLOP per 32x128x128 patch; a batch of
+// 8 patches is 8.7 TFLOP, at least 8.8 ms at the H100's 989 TFLOP/s dense
+// bf16. Only the first conv (Ci=1) and conv_out (Co=1) are bound by bytes.
 //
-//   * implicit GEMM. M = a tile of BM=128 output positions inside one (n, d)
-//     plane (one row segment along W, or whole rows when W < 128), N = a tile
-//     of BN output channels, K = taps x Ci, walked as (dz, dy, Ci chunk)
-//     stages.
-//   * per stage one input slab (the tile's rows shifted by dy, widened by the
-//     kW-1 column halo) and the kW tap matrices of that (dz, dy) are copied
-//     to shared memory with cp.async; all kW taps along W read the same slab
-//     at shifted row addresses (ldmatrix takes one address per row), so the
-//     input is read from L2 kD*kH times, not kD*kH*kW times.
-//   * halos are bounds-checked zero-filled loads (cp.async src-size 0): no
-//     padded copy of the input exists. Depth taps that fall outside the
-//     volume are skipped entirely.
-//   * products are bf16 mma.sync.m16n8k16 with fp32 accumulators; two stage
-//     buffers overlap the next stage's copies with this stage's products.
-//   * Ci must be a multiple of 8 (16-byte copies). The caller packs the kW
-//     taps of a narrow input (the 1-channel input conv) into channels, and
-//     pads the weights to whole Ci chunks and Co tiles; Co=1 is served by
-//     zero weight columns.
-//   * no atomics: every output is written once, so results are deterministic.
+// Both instances are one implicit GEMM: M = a tile of output positions
+// inside one (n, d) plane, N = a tile of output channels, K = taps x Ci,
+// walked as (dz, dy, Ci chunk) stages. Per stage one input slab (the tile's
+// rows shifted by dy, widened by the kW-1 column halo) and the kW tap
+// matrices of that (dz, dy) are copied to shared memory; all kW taps along W
+// read the same slab at addresses shifted by dx positions, so the input is
+// read from L2 kD*kH times, not kD*kH*kW times. Halos are zero-filled by the
+// copies: no padded copy of the input exists. Depth taps that fall outside
+// the volume are skipped. No atomics: every output is written once, so
+// results are bit-reproducible. The host's plan (ops/conv3d.py,
+// conv3d_same_plan) picks the instance and its tiles.
 //
-// wgmma, TMA and a persistent schedule are left for later work.
+// wide instance (packed Ci >= 16, Co >= 32, planes of 128 positions or
+// more): warpgroup MMA, wgmma.mma_async.m64n{BN}k16 with both operands in
+// shared memory. A block is 1 or 2 warpgroups of 1, 2 or 4 m64 tiles (BM =
+// 64 to 512 positions), BN = 32, 64 or 128 channels.
+//   * Loads: one thread issues each stage's copies to the tensor memory
+//     accelerator (TMA), which computes the addresses, fills the halos and
+//     the channels past Ci with zeros and signals an mbarrier a ring
+//     buffer: one box (rows x pitch positions x 8 channels) per channel
+//     chunk of x, one box of kW x BN x KC weights.
+//   * A: the slab is chunk-major, 16 bytes a (8-channel chunk, position), so
+//     8 consecutive positions of a chunk are one 128-byte core matrix of the
+//     no-swizzle K-major layout (exactly what a box of 8 channels writes). An
+//     m64 tile is 64 positions of one row (core matrices 128 bytes apart)
+//     where W >= 64, or 8 rows x 8 columns (core matrices one slab row
+//     apart) where W < 64; either way tap dx is the same descriptor started
+//     dx positions later.
+//   * B: the weights are K-major (taps, co_pad, ci_pad) in memory; the copy
+//     writes them in the canonical swizzled layout of wgmma (32-, 64- or
+//     128-byte swizzle for KC = 16, 32, 64) at a 1024-byte aligned base.
+//   * Each stage is one commit group of kW * KC/16 * (m64 tiles) wgmmas per
+//     warpgroup; a warpgroup waits for the previous stage's group only, so
+//     the products of one stage overlap the barrier and loads of the next.
+//     The ring of 3-4 stages is filled 2 stages ahead of use, so a buffer is
+//     refilled only after every warpgroup retired its group.
+//   What bounds it is not measured (no profiler counters on the card's
+//   machine). Per-stage work is what the rates track: loads by TMA in place
+//   of per-thread cp.async loops, and wider stages (KC 64, BM up to 512),
+//   each bought time, where fewer shared-memory bytes per product did not.
+//
+// narrow instance (the packed 1-channel input conv, conv_out, the 2x8x8
+// bottleneck, small test shapes): the bf16 mma.sync.m16n8k16 kernel of the
+// first port, 8 warps as 4 (32 positions) x 2 (BN/2 channels), BM = 128,
+// two stage buffers filled by bounds-checked zero-filling cp.async, A and B
+// by ldmatrix. Ci is a multiple of 8 (16-byte copies): the caller packs the
+// kW taps of a narrow input into channels; Co=1 is served by zero weight
+// columns. The first two are bound by bytes, which neither instance
+// approaches yet.
+//
+// A producer warp and a persistent schedule are left for later work.
 
+#include <cuda.h>          // CUtensorMap (its encoder is fetched at run time)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;      // output positions per block
-constexpr int THREADS = 256; // 8 warps: 4 along M (32 rows each) x 2 along N
+constexpr int BM = 128;      // narrow instance: output positions per block
+constexpr int THREADS = 256; // narrow instance: 8 warps, 4 along M (32 rows each) x 2 along N
+constexpr int SMEM_MAX = 227 * 1024;
+constexpr int SWIZZLE_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows of 128 bytes
 
 struct ConvParams {
   const __nv_bfloat16* x;  // (N, D, H, W, Ci)
-  const __nv_bfloat16* wt; // (T, ci_pad, co_pad)
+  const __nv_bfloat16* wt; // narrow: (T, ci_pad, co_pad); wide: (T, co_pad, ci_pad)
   const float* bias;       // (co_pad) or nullptr
   void* y;                 // (N, D, H, W, Co), fp32 or bf16
   int n, d, h, w, ci, co;
   int kd, kh, kw;
   int ci_pad, co_pad;
-  int tw;               // columns per tile (BM when W >= BM, else W)
-  int rows_per_tile;    // 1 when W >= BM, else BM / W
-  int tiles_per_row;    // ceil(W / BM) when W >= BM, else 1
+  int tw;               // columns per tile
+  int rows_per_tile;    // rows per tile
+  int tiles_per_row;    // ceil(W / tw)
   int tiles_per_plane;
   int slab_cap;         // slab positions per stage buffer
   int relu;
+  int out_bf16;         // wide instance: bf16 (1) or fp32 (0) output
+  int stages;           // wide instance: ring depth
+  int pitch;            // wide instance: slab positions a tile row (tw + kw - 1)
+  int patch;            // wide instance: m64 tiles of 8 x 8 positions (1) or of one row (0)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -105,8 +140,8 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// KC: input channels per stage (16 or 32). BN: output channels per block
-// (16, 32 or 64). Each warp owns a 32 x (BN/2) output tile.
+// ---------------------------------------------------------------- narrow instance
+
 template <int KC, int BN, bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS)
 conv3d_same_kernel(const ConvParams p) {
@@ -263,75 +298,588 @@ conv3d_same_kernel(const ConvParams p) {
   }
 }
 
-template <int KC, int BN, bool OUT_BF16>
-cudaError_t launch(const ConvParams& p, cudaStream_t stream) {
-  const size_t buf_bytes =
-      (size_t)p.slab_cap * (KC + 8) * 2 + (size_t)p.kw * KC * (BN + 8) * 2;
-  const size_t smem = 2 * buf_bytes;
-  if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
-  auto kern = conv3d_same_kernel<KC, BN, OUT_BF16>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((long long)p.n * p.d * p.tiles_per_plane), (unsigned)(p.co_pad / BN));
-  kern<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------- warpgroup MMA
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-template <int KC, bool OUT_BF16>
-cudaError_t launch_bn(const ConvParams& p, int bn, cudaStream_t stream) {
-  switch (bn) {
-    case 16: return launch<KC, 16, OUT_BF16>(p, stream);
-    case 32: return launch<KC, 32, OUT_BF16>(p, stream);
-    case 64: return launch<KC, 64, OUT_BF16>(p, stream);
-    default: return cudaErrorInvalidValue;
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier of one ring buffer: the tensor copies of a stage complete on it.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `parity` to complete; traps (a launch error)
+// rather than hang if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1ll << 26)) __trap();
   }
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator register across
+// the wgmma waits (it does not know that wgmma writes them asynchronously).
+template <int NACC>
+__device__ __forceinline__ void fence_accumulators(float (&d)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in a swizzled layout:
+// start address, leading byte offset (unused by swizzled K-major layouts: 1),
+// stride byte offset (between 8-row groups), swizzle mode (bits 62-63: 1 =
+// 128-byte, 2 = 64-byte, 3 = 32-byte).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo_bytes,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | (layout << 62);
+}
+
+// D (64 x N, fp32) += A (64 x 16, bf16) * B (16 x N, bf16), both K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+// Shared-memory descriptor of A in the no-swizzle K-major layout: core
+// matrices of 8 positions x 16 bytes (128 contiguous bytes), `lbo` bytes
+// apart along K and `sbo` bytes apart along M.
+__device__ __forceinline__ uint64_t smem_desc_a(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// WG consumer warpgroups of MT m64 tiles each (BM = 64 * WG * MT output
+// positions), KC input channels a stage, BN output channels a block.
+template <int WG, int MT, int KC, int BN>
+__global__ void __launch_bounds__(WG * 128, WG == 2 ? 2 : 4)
+conv3d_same_kernel_wgmma(const ConvParams p, const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmw) {
+  constexpr int SEGS = KC / 8;               // 8-channel chunks a stage
+  constexpr int RB = KC * 2;                 // bytes per weight row (one output channel)
+  constexpr int KSTEPS = KC / 16;
+  constexpr int NACC = BN / 2;
+  constexpr uint64_t LAYOUT = KC == 64 ? 1 : (KC == 32 ? 2 : 3);
+  constexpr uint32_t SBO_B = 8 * RB;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // weight tiles first, at a 1024-byte boundary (the swizzle pattern is a
+  // function of the address), then the slabs: chunk-major, 16 bytes a
+  // (8-channel chunk, position), so 8 consecutive positions of a chunk are
+  // one core matrix of A; a chunk starts 128-byte aligned, as a tensor
+  // copy's destination must
+  const uint32_t b_base = (smem_u32(smem) + SWIZZLE_ALIGN - 1) & ~(uint32_t)(SWIZZLE_ALIGN - 1);
+  const uint32_t b_stage = (uint32_t)p.kw * BN * RB;
+  const uint32_t a_chunk = ((uint32_t)p.slab_cap * 16 + 127) & ~127u;
+  const uint32_t a_stage = a_chunk * SEGS;
+  const uint32_t a_base = b_base + p.stages * b_stage;
+  __shared__ __align__(8) uint64_t bar_mem[4];  // one mbarrier a ring buffer
+  const uint32_t bars = smem_u32(bar_mem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int wl = (tid >> 5) & 3;  // warp within the warpgroup: rows 16 wl .. +15 of each m64
+
+  // ---- which tile this block computes ----
+  int bx = blockIdx.x;
+  const int t = bx % p.tiles_per_plane;
+  bx /= p.tiles_per_plane;
+  const int dd = bx % p.d;
+  const int nn = bx / p.d;
+  const int h0 = (t / p.tiles_per_row) * p.rows_per_tile;
+  const int w0 = (t % p.tiles_per_row) * p.tw;
+  const int rows = min(p.rows_per_tile, p.h - h0);
+  const int twv = min(p.tw, p.w - w0);
+  const int co0 = blockIdx.y * BN;
+
+  const int pd = (p.kd - 1) / 2, ph = (p.kh - 1) / 2, pw = (p.kw - 1) / 2;
+  const int dz_lo = max(0, pd - dd);
+  const int dz_hi = min(p.kd, p.d - dd + pd);
+  const int nchunks = p.ci_pad / KC;
+  const int num_stages = (dz_hi - dz_lo) * p.kh * nchunks;
+
+  // slab offset of each m64 tile's first core matrix at tap dx = 0, and the
+  // stride between its 8 core matrices: a row segment of 64 positions (row
+  // mode), or 8 rows x 8 columns (patch mode)
+  uint32_t a_off[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int q = wg * MT + i;
+    if (p.patch) {
+      a_off[i] = (uint32_t)q * 8 * 16;
+    } else {
+      const int r = q * 64 / p.tw;
+      a_off[i] = (uint32_t)(r * p.pitch + q * 64 - r * p.tw) * 16;
+    }
+  }
+  const uint32_t sbo_a = p.patch ? (uint32_t)p.pitch * 16 : 128;
+
+  // One thread loads a stage by the tensor memory accelerator: a box of
+  // rows x pitch positions x 8 channels of x per channel chunk (zero past
+  // every edge: the halos, and channels past Ci), and a box of kW x BN x KC
+  // weights, which the copy writes in wgmma's swizzled layout. All complete
+  // on the buffer's mbarrier.
+  auto load_stage = [&](int s, int buf) {
+    if (tid != 0) return;
+    const int chunk = s % nchunks;
+    const int rest = s / nchunks;
+    const int dy = rest % p.kh;
+    const int dz = dz_lo + rest / p.kh;
+    const int ci0 = chunk * KC;
+    const uint32_t bar = bars + buf * 8;
+    mbar_expect_tx(bar, SEGS * p.slab_cap * 16 + b_stage);
+    for (int k = 0; k < SEGS; ++k) {
+      tma_load_5d(a_base + buf * a_stage + k * a_chunk, &tmx, bar, ci0 + k * 8, w0 - pw,
+                  h0 + dy - ph, dd + dz - pd, nn);
+    }
+    tma_load_3d(b_base + buf * b_stage, &tmw, bar, ci0, co0, (dz * p.kh + dy) * p.kw);
+  };
+
+  float acc[MT][NACC];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) acc[i][j] = 0.0f;
+
+  // Ring of S >= 3 buffers, filled S - 2 stages ahead. Each stage is one
+  // commit group per warpgroup, and a warpgroup leaves a stage with at most
+  // that group in flight; so when the barrier of stage s is passed, stage
+  // s - 2 is retired everywhere and its buffer can be refilled.
+  const int S = p.stages;
+  const int ahead = S - 2;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(bars + i * 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < ahead && s < num_stages; ++s) load_stage(s, s);
+  int buf = 0, next_buf = ahead;
+  for (int s = 0; s < num_stages; ++s) {
+    mbar_wait(bars + buf * 8, (uint32_t)(s / S) & 1);  // the buffer's (s / S)-th fill
+    __syncthreads();  // every warpgroup has retired stage s - 2
+    if (s + ahead < num_stages) load_stage(s + ahead, next_buf);
+
+    // tap dx reads the slab dx positions later: all kW taps share one slab
+    const uint32_t bt = b_base + buf * b_stage;
+    const uint32_t at = a_base + buf * a_stage;
+    wgmma_fence();
+    for (int dx = 0; dx < p.kw; ++dx) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint64_t db = smem_desc(bt + dx * BN * RB + kk * 32, SBO_B, LAYOUT);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          wgmma_ss(acc[i], smem_desc_a(at + a_off[i] + dx * 16 + kk * 2 * a_chunk, a_chunk, sbo_a),
+                   db);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    buf = buf + 1 == S ? 0 : buf + 1;
+    next_buf = next_buf + 1 == S ? 0 : next_buf + 1;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) fence_accumulators(acc[i]);
+
+  // ---- epilogue: bias (+ReLU) in fp32, then store ----
+  // accumulator 4j + 2h + e of lane l in warp wl: row 16 wl + l/4 + 8h of
+  // the m64 tile, column 8j + 2(l%4) + e (the mma.m16n8k16 C fragment, once
+  // per 8 columns)
+  const bool pairs = (p.co & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int q = wg * MT + i;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int mm = wl * 16 + (lane >> 2) + half * 8;
+      int r, c;
+      if (p.patch) {
+        r = mm >> 3;
+        c = q * 8 + (mm & 7);
+      } else {
+        const int m = q * 64 + mm;
+        r = m / p.tw;
+        c = m - r * p.tw;
+      }
+      if (r >= rows || c >= twv) continue;
+      const long long out_base =
+          ((((long long)nn * p.d + dd) * p.h + h0 + r) * p.w + w0 + c) * p.co;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = co0 + j * 8 + (lane & 3) * 2;
+        if (co >= p.co) continue;
+        float v0 = acc[i][j * 4 + half * 2], v1 = acc[i][j * 4 + half * 2 + 1];
+        if (p.bias != nullptr) {
+          v0 += p.bias[co];
+          v1 += p.bias[co + 1];
+        }
+        if (p.relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        const bool both = co + 1 < p.co;
+        if (p.out_bf16) {
+          __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(p.y) + out_base + co;
+          if (both && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            y[0] = __float2bfloat16_rn(v0);
+            if (both) y[1] = __float2bfloat16_rn(v1);
+          }
+        } else {
+          float* y = reinterpret_cast<float*>(p.y) + out_base + co;
+          if (both && pairs) {
+            *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+          } else {
+            y[0] = v0;
+            if (both) y[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+size_t narrow_smem(const ConvParams& p, int kc, int bn) {
+  return 2 * ((size_t)p.slab_cap * (kc + 8) * 2 + (size_t)p.kw * kc * (bn + 8) * 2);
+}
+
+size_t wide_smem(const ConvParams& p, int kc, int bn, int stages) {
+  const size_t slab = (size_t)(p.slab_cap + 7) / 8 * 8;  // 128-byte aligned chunks
+  return (size_t)stages * ((size_t)p.kw * bn * kc * 2 + slab * kc * 2) + SWIZZLE_ALIGN;
+}
+
+using Kernel = void (*)(ConvParams);
+using WideKernel = void (*)(ConvParams, CUtensorMap, CUtensorMap);
+
+template <int KC, bool OUT_BF16>
+Kernel narrow_kernel(int bn) {
+  switch (bn) {
+    case 16: return &conv3d_same_kernel<KC, 16, OUT_BF16>;
+    case 32: return &conv3d_same_kernel<KC, 32, OUT_BF16>;
+    case 64: return &conv3d_same_kernel<KC, 64, OUT_BF16>;
+    default: return nullptr;
+  }
+}
+
+// Instances: BN 32 at 1, 2 or 4 m64 tiles a warpgroup, BN 64 at 1 or 2, BN
+// 128 at 1; KC = 64 up to BN = 64 and 2 m64 tiles (beyond, three stages of
+// slab and weights outgrow shared memory).
+template <int WG, int MT>
+WideKernel wide_kernel(int kc, int bn) {
+  if (MT == 4 && (bn != 32 || kc == 64)) return nullptr;
+  if (MT != 1 && bn == 128) return nullptr;
+  constexpr int M2 = MT == 4 ? 1 : MT;  // the BN = 64 and 128 instances MT names
+  switch (kc * 1000 + bn) {
+    case 16032: return &conv3d_same_kernel_wgmma<WG, MT, 16, 32>;
+    case 32032: return &conv3d_same_kernel_wgmma<WG, MT, 32, 32>;
+    case 64032: return &conv3d_same_kernel_wgmma<WG, M2, 64, 32>;
+    case 16064: return &conv3d_same_kernel_wgmma<WG, M2, 16, 64>;
+    case 32064: return &conv3d_same_kernel_wgmma<WG, M2, 32, 64>;
+    case 64064: return &conv3d_same_kernel_wgmma<WG, M2, 64, 64>;
+    case 16128: return &conv3d_same_kernel_wgmma<WG, 1, 16, 128>;
+    case 32128: return &conv3d_same_kernel_wgmma<WG, 1, 32, 128>;
+    default: return nullptr;
+  }
+}
+
+// The planned launch: the narrow or the wide kernel (neither for a plan
+// this source has no instance for), threads, dynamic shared bytes, grid.
+struct Launch {
+  Kernel kern;      // narrow instance
+  WideKernel wide;  // wide instance
+  int threads;
+  size_t smem;
+  dim3 grid;
+  bool ok() const { return kern != nullptr || wide != nullptr; }
+  const void* func() const {
+    return kern != nullptr ? reinterpret_cast<const void*>(kern)
+                           : reinterpret_cast<const void*>(wide);
+  }
+};
+
+// instance: 0 narrow (mma.sync), 1 wide (wgmma, BM = 64 * warpgroups * m64
+// tiles a warpgroup, the latter given as mt: 1, 2 or 4).
+Launch plan_launch(ConvParams& p, int n, int d, int h, int wl, int ci, int co, int kd, int kh,
+                   int kw, int ci_pad, int co_pad, int instance, int bm, int mt, int bn, int kc,
+                   int stages, int out_bf16) {
+  Launch l{nullptr, nullptr, 0, 0, dim3(1)};
+  if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || n <= 0 || d <= 0 || h <= 0 || wl <= 0 ||
+      ci <= 0 || ci % 8 != 0 || co <= 0 || ci_pad < ci || co_pad < co || kc <= 0 || bn <= 0 ||
+      ci_pad % kc != 0 || co_pad % bn != 0) {
+    return l;
+  }
+  p.n = n; p.d = d; p.h = h; p.w = wl; p.ci = ci; p.co = co;
+  p.kd = kd; p.kh = kh; p.kw = kw;
+  p.ci_pad = ci_pad; p.co_pad = co_pad;
+  p.out_bf16 = out_bf16;
+  p.stages = stages;
+  if (instance == 1) {
+    const int wgs = bm / (64 * mt);
+    if ((mt != 1 && mt != 2 && mt != 4) || (wgs != 1 && wgs != 2) || bm != 64 * wgs * mt ||
+        stages < 3 || stages > 4) {
+      return l;
+    }
+    if (wl >= 64) {  // row mode: each m64 tile is 64 positions of one row
+      p.patch = 0;
+      p.tw = 64;  // up to 128 columns: a tensor-copy box spans at most 256
+      while (p.tw * 2 <= bm && p.tw * 2 <= wl && p.tw < 128) p.tw *= 2;
+      p.rows_per_tile = bm / p.tw;
+    } else {  // patch mode: each m64 tile is 8 rows x 8 columns
+      if (mt != 1) return l;
+      p.patch = 1;
+      p.rows_per_tile = 8;
+      p.tw = 8 * wgs;
+    }
+    p.tiles_per_row = (wl + p.tw - 1) / p.tw;
+    p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile * p.tiles_per_row;
+    p.pitch = p.tw + kw - 1;
+    p.slab_cap = p.rows_per_tile * p.pitch;
+    if (wgs == 2) {
+      l.wide = mt == 4 ? wide_kernel<2, 4>(kc, bn)
+             : mt == 2 ? wide_kernel<2, 2>(kc, bn) : wide_kernel<2, 1>(kc, bn);
+    } else {
+      l.wide = mt == 4 ? wide_kernel<1, 4>(kc, bn)
+             : mt == 2 ? wide_kernel<1, 2>(kc, bn) : wide_kernel<1, 1>(kc, bn);
+    }
+    l.threads = wgs * 128;
+    l.smem = wide_smem(p, kc, bn, stages);
+  } else if (instance == 0) {
+    if (bm != BM || mt != 1 || stages != 2 || (kc != 16 && kc != 32)) return l;
+    if (wl >= BM) {
+      p.tw = BM;
+      p.rows_per_tile = 1;
+      p.tiles_per_row = (wl + BM - 1) / BM;
+      p.tiles_per_plane = h * p.tiles_per_row;
+    } else {
+      p.tw = wl;
+      p.rows_per_tile = BM / wl;
+      p.tiles_per_row = 1;
+      p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile;
+    }
+    p.slab_cap = p.rows_per_tile * (p.tw + kw - 1);
+    if (kc == 16) {
+      l.kern = out_bf16 ? narrow_kernel<16, true>(bn) : narrow_kernel<16, false>(bn);
+    } else {
+      l.kern = out_bf16 ? narrow_kernel<32, true>(bn) : narrow_kernel<32, false>(bn);
+    }
+    l.threads = THREADS;
+    l.smem = narrow_smem(p, kc, bn);
+  } else {
+    return l;
+  }
+  if (l.smem > SMEM_MAX) l.kern = nullptr, l.wide = nullptr;
+  l.grid = dim3((unsigned)((long long)n * d * p.tiles_per_plane), (unsigned)(co_pad / bn));
+  return l;
+}
+
+// Tensor maps of the TMA loads: x as (Ci, W, H, D, N) in boxes of 8
+// channels x pitch columns x rows, zero past the edges; the weights as
+// (ci_pad, co_pad, taps) in boxes of KC x BN x kW, written in wgmma's
+// swizzled layout. The encoder is fetched through the runtime API, so the
+// library needs no link flag beyond nvcc's defaults.
+bool encode_maps(const ConvParams& p, const void* x, const void* w, int kc, int bn,
+                 CUtensorMap* tmx, CUtensorMap* tmw) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return false;
+    }
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+  }
+  const cuuint64_t e = 2;  // bytes a bf16
+  const cuuint64_t xd[5] = {(cuuint64_t)p.ci, (cuuint64_t)p.w, (cuuint64_t)p.h,
+                            (cuuint64_t)p.d, (cuuint64_t)p.n};
+  const cuuint64_t xs[4] = {xd[0] * e, xd[0] * xd[1] * e, xd[0] * xd[1] * xd[2] * e,
+                            xd[0] * xd[1] * xd[2] * xd[3] * e};
+  const cuuint32_t xb[5] = {8, (cuuint32_t)p.pitch, (cuuint32_t)p.rows_per_tile, 1, 1};
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  if (encode(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xd, xs, xb, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return false;
+  }
+  const cuuint64_t wd[3] = {(cuuint64_t)p.ci_pad, (cuuint64_t)p.co_pad,
+                            (cuuint64_t)p.kd * p.kh * p.kw};
+  const cuuint64_t ws[2] = {wd[0] * e, wd[0] * wd[1] * e};
+  const cuuint32_t wb[3] = {(cuuint32_t)kc, (cuuint32_t)bn, (cuuint32_t)p.kw};
+  const CUtensorMapSwizzle sw = kc == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : kc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wd, ws, wb, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the conv on `stream` and returns the cudaError_t of the launch
-// (0 on success). Does not synchronize and allocates nothing.
+// What a plan launches, into out[0..4]: dynamic shared bytes, grid x, grid
+// y, registers a thread, local (spill) bytes a thread. The plan's arguments
+// are those of conv3d_same_bf16. Returns cudaErrorInvalidValue for a plan
+// with no instance, else the cudaError_t of reading the kernel's attributes.
+int conv3d_same_plan(int n, int d, int h, int wl, int ci, int co, int kd, int kh, int kw,
+                     int ci_pad, int co_pad, int instance, int bm, int mt, int bn, int kc,
+                     int stages, int out_bf16, int* out) {
+  ConvParams p;
+  const Launch l = plan_launch(p, n, d, h, wl, ci, co, kd, kh, kw, ci_pad, co_pad, instance,
+                               bm, mt, bn, kc, stages, out_bf16);
+  if (!l.ok()) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, l.func());
+  out[0] = (int)l.smem;
+  out[1] = (int)l.grid.x;
+  out[2] = (int)l.grid.y;
+  out[3] = err == cudaSuccess ? a.numRegs : -1;
+  out[4] = err == cudaSuccess ? (int)a.localSizeBytes : -1;
+  return (int)err;
+}
+
+// Launches the planned instance on `stream` and returns the cudaError_t of
+// the launch (0 on success). instance: 0 narrow (mma.sync), 1 wide (wgmma).
+// Weights: (T, ci_pad, co_pad) for the narrow instance, K-major (T, co_pad,
+// ci_pad) for the wide one. Does not synchronize and allocates nothing.
 int conv3d_same_bf16(const void* x, const void* w, const void* bias, void* y, int n, int d,
                      int h, int wl, int ci, int co, int kd, int kh, int kw, int ci_pad,
-                     int co_pad, int kc, int bn, int relu, int out_bf16, void* stream) {
-  if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || n <= 0 || d <= 0 || h <= 0 || wl <= 0 ||
-      ci <= 0 || ci % 8 != 0 || co <= 0 || (kc != 16 && kc != 32) || ci_pad % kc != 0 ||
-      ci_pad < ci ||
-      co_pad % bn != 0 || co_pad < co) {
-    return (int)cudaErrorInvalidValue;
-  }
+                     int co_pad, int instance, int bm, int mt, int bn, int kc, int stages,
+                     int relu, int out_bf16, void* stream) {
   ConvParams p;
+  const Launch l = plan_launch(p, n, d, h, wl, ci, co, kd, kh, kw, ci_pad, co_pad, instance,
+                               bm, mt, bn, kc, stages, out_bf16);
+  if (!l.ok()) return (int)cudaErrorInvalidValue;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wt = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.y = y;
-  p.n = n; p.d = d; p.h = h; p.w = wl; p.ci = ci; p.co = co;
-  p.kd = kd; p.kh = kh; p.kw = kw;
-  p.ci_pad = ci_pad; p.co_pad = co_pad;
-  if (wl >= BM) {
-    p.tw = BM;
-    p.rows_per_tile = 1;
-    p.tiles_per_row = (wl + BM - 1) / BM;
-    p.tiles_per_plane = h * p.tiles_per_row;
-  } else {
-    p.tw = wl;
-    p.rows_per_tile = BM / wl;
-    p.tiles_per_row = 1;
-    p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile;
-  }
-  p.slab_cap = p.rows_per_tile * (p.tw + kw - 1);
   p.relu = relu;
+  cudaError_t err =
+      cudaFuncSetAttribute(l.func(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (kc == 16) {
-    err = out_bf16 ? launch_bn<16, true>(p, bn, s) : launch_bn<16, false>(p, bn, s);
-  } else {
-    err = out_bf16 ? launch_bn<32, true>(p, bn, s) : launch_bn<32, false>(p, bn, s);
+  if (l.kern != nullptr) {
+    l.kern<<<l.grid, l.threads, l.smem, s>>>(p);
+    return (int)cudaGetLastError();
   }
-  return (int)err;
+  CUtensorMap tmx, tmw;
+  if (!encode_maps(p, x, w, kc, bn, &tmx, &tmw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  l.wide<<<l.grid, l.threads, l.smem, s>>>(p, tmx, tmw);
+  return (int)cudaGetLastError();
 }
 
 const char* conv3d_same_error_string(int err) {

@@ -6,7 +6,9 @@ runs its plain PyTorch version, which defines the same arithmetic (inputs
 rounded to the compute dtype, sums in fp32, fp64 stays fp64):
 
   conv3d_same            K1, ``pallas_conv3d_same``: shared kernel, fused
-                         bias(+ReLU) epilogue (``csrc/conv3d_same.cu``);
+                         bias(+ReLU) epilogue (``csrc/conv3d_same.cu``;
+                         its instance, warpgroup MMA or mma.sync, and tiles
+                         from ``conv3d_same_plan``);
   conv3d_same_persample  K2 and K3, ``pallas_conv3d_same_persample``: one
                          kernel per sample, and its transpose (the dx of the
                          merged MoDE conv) reading the forward kernels
@@ -104,8 +106,10 @@ def conv3d_same(
     """'same' stride-1 3-D conv with an optional fused bias(+ReLU) epilogue.
 
     On a CUDA tensor: one launch of the bf16 tensor-core kernel on the
-    current stream (``compute_dtype`` must be bf16, or None with a bf16
-    ``x``; ``out_dtype`` fp32 (default) or bf16). The kernel has no
+    current stream, the instance and tiles of ``conv3d_same_plan``
+    (``compute_dtype`` must be bf16, or None with a bf16 ``x``;
+    ``out_dtype`` fp32 (default) or bf16); a refused launch raises with the
+    plan in its message. The kernel has no
     backward, as its TPU counterpart has none: with grad enabled and an input
     that requires grad it raises. On a CPU tensor: the plain version.
     ``conv3d_same.launches`` counts kernel launches.
@@ -178,35 +182,207 @@ def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tenso
     if bias is not None and tuple(bias.shape) != (co,):
         raise ValueError(f"conv3d_same: bias {tuple(bias.shape)} must be ({co},)")
 
+    plan = conv3d_same_plan(tuple(x.shape), co, (kd, kh, kw), odt, num_sms=_num_sms(x.device))
+    return _k1_launch(x, w, bias, relu, odt, plan)
+
+
+def _k1_launch(x, w, bias, relu, odt, plan) -> torch.Tensor:
+    """Launch K1 as ``plan`` says (its instance, bm, mt, bn, kc, stages,
+    ci_pad, co_pad) on checked operands."""
+    n, d, h, wl = x.shape[:4]
     xb, w = _to_multiple_of_8_channels(x.to(torch.bfloat16), w)
     kd, kh, kw, ci, co = w.shape
-    kc = 16 if ci <= 16 else 32
-    bn = 16 if co <= 16 else (32 if co <= 32 else 64)
-    ci_pad = -(-ci // kc) * kc
-    co_pad = -(-co // bn) * bn
-    taps = kd * kh * kw
-
     xb = _aligned(xb)
-    wp = torch.zeros((taps, ci_pad, co_pad), dtype=torch.bfloat16, device=x.device)
-    wp[:, :ci, :co] = w.reshape(taps, ci, co)
+    wp = _k1_weights(w, plan)
     bp = None
     if bias is not None:
-        bp = torch.zeros((co_pad,), dtype=torch.float32, device=x.device)
+        bp = torch.zeros((plan["co_pad"],), dtype=torch.float32, device=x.device)
         bp[:co] = bias
     y = torch.empty((n, d, h, wl, co), dtype=odt, device=x.device)
 
     lib = build.load("conv3d_same")
     err = lib.conv3d_same_bf16(
         xb.data_ptr(), wp.data_ptr(), None if bp is None else bp.data_ptr(), y.data_ptr(),
-        n, d, h, wl, ci, co, kd, kh, kw, ci_pad, co_pad, kc, bn, int(relu),
-        int(odt == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        n, d, h, wl, ci, co, kd, kh, kw, plan["ci_pad"], plan["co_pad"],
+        int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"], plan["kc"],
+        plan["stages"], int(relu), int(odt == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3d_same_error_string(err).decode()
-        raise RuntimeError(
-            f"conv3d_same kernel launch failed ({msg}) for x {tuple(x.shape)}, w {tuple(w.shape)}"
-        )
+        raise RuntimeError(f"conv3d_same kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"w {tuple(w.shape)}, plan {plan}")
     return y
+
+
+# K1's shared memory: a block may take 227 KB; two blocks an SM fit where
+# each takes at most 113 KB (the SM's 228 KB less 1 KB reserved a block).
+_K1_SMEM_MAX = 227 * 1024
+_K1_SMEM_TWO_BLOCKS = 113 * 1024
+_K1_SWIZZLE_ALIGN = 1024  # the wide instance aligns its weight tiles to the swizzle pattern
+_H100_SMS = 132
+_SMS: dict = {}
+
+
+def _num_sms(device) -> int:
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _same_packed_dims(ci: int, kw: int):
+    """(Ci, kW) of the problem ``_to_multiple_of_8_channels`` hands K1."""
+    if ci % 8 and kw > 1 and kw * ci <= 32:
+        ci, kw = kw * ci, 1
+    return -(-ci // 8) * 8, kw
+
+
+def _k1_tiles(h: int, wl: int, kw: int, bm: int):
+    """(tiles per (n, d) plane, slab positions a stage) of the narrow
+    instance's BM-position tile: a row segment when W >= BM, else BM // W
+    whole rows."""
+    if wl >= bm:
+        return h * -(-wl // bm), bm + kw - 1
+    rows = bm // wl
+    return -(-h // rows), rows * (wl + kw - 1)
+
+
+def conv3d_same_plan(x_shape, co: int, taps, out_dtype=torch.float32, *,
+                     num_sms: int = _H100_SMS, device=None) -> dict:
+    """The launch K1 makes for x (N,D,H,W,Ci), Co output channels and taps
+    (kD,kH,kW), after the wrapper's channel packing (``packed``: Ci, kW).
+
+    instance "wgmma" (packed Ci >= 16, Co >= 32, and H*W >= 128 positions a
+    plane; its loads by the tensor memory accelerator): ``bm`` = 64
+    positions x warpgroups (2; 1 where W < 16) x ``mt`` m64 tiles a
+    warpgroup (where W >= 64: 4 at BN = 32, 2 at BN = 64); BN =
+    32, 64 or 128 (Co above 128 in 128-wide tiles). A grid under 3/4 of a
+    block an SM (``num_sms``) first halves mt, then BN down to 32, then
+    takes one warpgroup. An m64 tile is 64 positions of one row where W >=
+    64 (at most 128 columns a tile row), else 8 rows x 8 columns. KC input
+    channels a stage: 64 where Ci allows and BN <= 64 (then at most 2 m64
+    tiles a warpgroup), else 32, else 16, narrowed where a ring of 3 stages
+    would not fit; as many stages (3-4) as leave two blocks an SM (113 KB),
+    else as fit one block. instance "mma_sync" (the narrow 1-channel and Co
+    < 32 convs, planes under 128 positions): BM 128, BN 16/32/64, KC 16/32,
+    two stages.
+    Also: ci_pad and co_pad (the weights' padded extents), dynamic shared
+    bytes, grid and blocks. With a CUDA ``device`` (needs the card) it also
+    reads the compiled kernel's registers and local (spill) bytes a thread,
+    and checks that the kernel computes the same shared memory and grid.
+    """
+    n, d, h, wl, ci = (int(v) for v in x_shape)
+    kd, kh, kw = (int(v) for v in taps)
+    cip, kw = _same_packed_dims(ci, kw)
+    co = int(co)
+    plan = None
+    if cip >= 16 and co >= 32:
+        plan = _wide_plan(n, d, h, wl, cip, co, kw, num_sms)
+    if plan is None:
+        kc = 16 if cip <= 16 else 32
+        bn = 16 if co <= 16 else (32 if co <= 32 else 64)
+        tiles, slab = _k1_tiles(h, wl, kw, 128)
+        plan = dict(instance="mma_sync", bm=128, mt=1, bn=bn, kc=kc, stages=2,
+                    smem_bytes=2 * (slab * (kc + 8) * 2 + kw * kc * (bn + 8) * 2),
+                    grid=[n * d * tiles, -(-co // bn)])
+    plan.update(packed=[cip, kw], ci_pad=-(-cip // plan["kc"]) * plan["kc"],
+                co_pad=-(-co // plan["bn"]) * plan["bn"],
+                blocks=plan["grid"][0] * plan["grid"][1])
+    if device is not None:
+        plan.update(_k1_attributes(plan, (n, d, h, wl), co, (kd, kh, kw), out_dtype))
+    return plan
+
+
+def _k1_wide_tiles(h: int, wl: int, kw: int, bm: int, mt: int):
+    """(tiles per (n, d) plane, slab positions a stage) of the wide
+    instance: rows of a power-of-two multiple of 64 columns where W >= 64
+    (each m64 tile one row segment), else 8 rows x 8 columns a warpgroup."""
+    if wl >= 64:
+        tw = 64
+        while tw * 2 <= min(bm, wl, 128):
+            tw *= 2
+        rows = bm // tw
+    else:
+        rows, tw = 8, 8 * (bm // (64 * mt))
+    return -(-h // rows) * -(-wl // tw), rows * (tw + kw - 1)
+
+
+def _wide_plan(n, d, h, wl, ci, co, kw, num_sms):
+    if h * wl < 128:
+        return None  # planes under one 128-position tile (the bottleneck's 8x8)
+
+    def blocks(wgs, mt, bn):
+        return n * d * _k1_wide_tiles(h, wl, kw, 64 * wgs * mt, mt)[0] * -(-co // bn)
+
+    bn = 32 if co <= 32 else (64 if co <= 64 else 128)
+    wgs = 2 if wl >= 16 else 1
+    mt = {32: 4, 64: 2}.get(bn, 1) if wl >= 64 else 1
+    while blocks(wgs, mt, bn) < num_sms * 3 // 4:
+        if mt > 1:
+            mt //= 2
+        elif bn > 32:
+            bn //= 2
+        elif wgs == 2:
+            wgs = 1
+        else:
+            break
+    kc = 64 if ci % 64 == 0 and bn <= 64 else (32 if ci >= 32 else 16)
+    mt = min(mt, 2) if kc == 64 else mt
+    bm = 64 * wgs * mt
+    tiles, slab = _k1_wide_tiles(h, wl, kw, bm, mt)
+
+    def stage_bytes(kc):  # each channel chunk of the slab 128-byte aligned
+        return kw * bn * kc * 2 + -(-slab // 8) * 8 * kc * 2
+
+    # the widest KC whose ring of 3 stages fits; as many stages (up to 4) as
+    # leave two blocks an SM, else as fit one block
+    for kc in [k for k in (64, 32, 16) if k <= kc]:
+        for room in (_K1_SMEM_TWO_BLOCKS, _K1_SMEM_MAX):
+            stages = min(4, (room - _K1_SWIZZLE_ALIGN) // stage_bytes(kc))
+            if stages >= 3:
+                return dict(instance="wgmma", bm=bm, mt=mt, bn=bn, kc=kc, stages=stages,
+                            smem_bytes=stages * stage_bytes(kc) + _K1_SWIZZLE_ALIGN,
+                            grid=[n * d * tiles, -(-co // bn)])
+    return None  # the slab of a very narrow W: the narrow instance takes it
+
+
+def _k1_attributes(plan, dhw, co, taps, out_dtype) -> dict:
+    """The compiled kernel of ``plan``: registers and local bytes a thread.
+    Raises if the kernel's own shared memory or grid differ from the plan's."""
+    n, d, h, wl = dhw
+    cip, kw = plan["packed"]
+    out = (ctypes.c_int * 5)()
+    lib = build.load("conv3d_same")
+    err = lib.conv3d_same_plan(
+        n, d, h, wl, cip, co, taps[0], taps[1], kw, plan["ci_pad"], plan["co_pad"],
+        int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"], plan["kc"],
+        plan["stages"], int(out_dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"conv3d_same_plan: {lib.conv3d_same_error_string(err).decode()} "
+                           f"for plan {plan}")
+    if [out[0], [out[1], out[2]]] != [plan["smem_bytes"], plan["grid"]]:
+        raise RuntimeError(f"conv3d_same_plan: the kernel launches {out[0]} shared bytes on a "
+                           f"{out[1]}x{out[2]} grid, the plan says {plan}")
+    return {"registers": out[3], "local_bytes": out[4]}
+
+
+def _k1_weights(w: torch.Tensor, plan: dict) -> torch.Tensor:
+    """The packed (kD,kH,kW,Ci,Co) weights in bf16 in the layout of
+    ``plan``'s instance, zero-padded: K-major (taps, co_pad, ci_pad) for
+    "wgmma", so that each (tap, Ci chunk, Co tile) is one box of whole K
+    rows; (taps, ci_pad, co_pad) for "mma_sync". One pass: the copy casts."""
+    kd, kh, kw, ci, co = w.shape
+    taps = kd * kh * kw
+    wt = w.reshape(taps, ci, co)
+    if plan["instance"] == "wgmma":
+        wp = w.new_zeros((taps, plan["co_pad"], plan["ci_pad"]), dtype=torch.bfloat16)
+        wp[:, :co, :ci] = wt.transpose(1, 2)
+    else:
+        wp = w.new_zeros((taps, plan["ci_pad"], plan["co_pad"]), dtype=torch.bfloat16)
+        wp[:, :ci, :co] = wt
+    return wp
 
 
 def _to_multiple_of_8_channels(x: torch.Tensor, w: torch.Tensor):
@@ -216,18 +392,16 @@ def _to_multiple_of_8_channels(x: torch.Tensor, w: torch.Tensor):
     along W packed into channels, x'[..., w, (dx, i)] = x[..., w + dx - pW, i]
     with zeros past the edges, and the kernel becomes (kD, kH, 1) over kW*Ci
     channels: the same products, with 5x fewer zero channels in each MMA.
-    Remaining channels are zero-padded.
+    Remaining channels are zero-padded (``_same_packed_dims``).
     """
-    ci = x.shape[-1]
+    kd, kh, kw, ci, co = w.shape
     if ci % 8 == 0:
         return x, w
-    kd, kh, kw, _, co = w.shape
-    if kw > 1 and kw * ci <= 32:
+    cip, kw_k = _same_packed_dims(ci, kw)
+    if kw_k != kw:
         x = _pack_w_taps(x, kw)
         w = w.reshape(kd, kh, 1, kw * ci, co)
-        ci = kw * ci
-    pad = -ci % 8
-    return F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+    return F.pad(x, (0, cip - x.shape[-1])), F.pad(w, (0, 0, 0, cip - w.shape[3]))
 
 
 def _pack_w_taps(x: torch.Tensor, kw: int) -> torch.Tensor:

@@ -118,7 +118,9 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "conv3d_same":
-        lib.conv3d_same_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 15 + [ptr]
+        lib.conv3d_same_plan.argtypes = [i32] * 18 + [ctypes.POINTER(i32)]
+        lib.conv3d_same_plan.restype = i32
+        lib.conv3d_same_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 19 + [ptr]
         lib.conv3d_same_bf16.restype = i32
     elif name == "conv3d_persample":
         lib.conv3d_persample_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 14 + [ptr]

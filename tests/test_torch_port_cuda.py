@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (``conv3d_same``), K2 and K3 (``conv3d_same_persample``, forward and
+K1 (``conv3d_same``: its plan, and each tile of its warpgroup-MMA
+instance through forced plans), K2 and K3 (``conv3d_same_persample``, forward and
 ``transpose_taps``), K4 (``conv3d_dw_persample``, its narrow and each of its
 wide instances), K5 (``conv3d_dpad``) and K6
 (``conv3d_tapconcat_persample``), the training path through K2-K4 and, under
@@ -39,9 +40,11 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_same_persample_plain,
     conv3d_same_plain,
+    conv3d_same_plan,
     conv3d_tapconcat_persample,
     conv3d_tapconcat_persample_plain,
 )
+from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.mode import MergedConvPerSample
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -74,16 +77,22 @@ def within_tolerance(y: torch.Tensor, ref: torch.Tensor) -> bool:
 
 # (N, D, H, W, Ci, Co, taps): covers the scalar (Ci % 8 != 0) and vector
 # input paths, partial channel chunks and Co tiles, W below and above the
-# 128-position tile, partial tiles and depths smaller than the taps.
+# 128-position tile, partial tiles and depths smaller than the taps. From
+# (1, 5, 3, 130, ...) on the plan takes the wide (wgmma) instance: Co = 40,
+# 100 and 160 leave partial Co tiles, taps 5^3, 3^3, 1^3 and (5,3,3).
 CASES = [
     (2, 4, 6, 8, 1, 32, (5, 5, 5)),
     (1, 3, 5, 20, 3, 5, (3, 5, 3)),
     (2, 2, 4, 8, 16, 1, (5, 5, 5)),
+    (1, 1, 9, 16, 40, 16, (1, 3, 3)),
     (1, 5, 3, 130, 24, 40, (3, 3, 3)),
     (1, 2, 2, 200, 8, 100, (1, 1, 1)),
     (2, 2, 8, 8, 64, 64, (5, 5, 5)),
-    (1, 1, 9, 16, 40, 16, (1, 3, 3)),
     (2, 4, 8, 16, 128, 128, (5, 3, 3)),  # the s2d routes' level-1 taps and width
+    (1, 3, 4, 136, 32, 40, (5, 5, 5)),
+    (2, 2, 12, 24, 48, 100, (3, 3, 3)),
+    (1, 4, 8, 32, 64, 160, (1, 1, 1)),
+    (2, 3, 6, 20, 16, 32, (5, 3, 3)),
 ]
 
 
@@ -104,6 +113,106 @@ def test_kernel_matches_plain(cuda, case, epilogue, out_dtype):
     ref = plain_fp64(x, wk, b, relu)
     assert y.shape == ref.shape and y.dtype == out_dtype
     assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+# Every (KC, BN) the plan can pick, with 1 or 2 warpgroups of 1, 2 or 4 m64
+# tiles (2 only up to BN = 64, 4 at BN = 32), on each tile shape: m64 tiles
+# of 8 rows x 8
+# columns (W < 64; H = 13 leaves a partial tile, W = 20 a partial column
+# block), of one row segment with a partial last one (W = BM + 12), and of
+# W = 64 (one row a tile). Ci = 2 KC, Co = 1.5 BN: one full and one partial
+# Co tile.
+WIDE_TILES = [(16, 32), (16, 64), (16, 128), (32, 32), (32, 64), (32, 128), (64, 32), (64, 64)]
+WIDE_CASES = [(kc, bn, wgs, mt, geometry)
+              for kc, bn in WIDE_TILES for wgs in (1, 2) for mt in (1, 2, 4)
+              for geometry in ("patch", "segments", "row64")
+              if mt == 1 or (geometry != "patch"
+                             and ((mt == 2 and bn <= 64) or (mt == 4 and bn == 32 and kc <= 32)))]
+
+
+def forced_plan(shape, co, taps, wgs, mt, kc, bn, stages):
+    """The wide instance at a chosen tile, KC and ring depth (the plan
+    shrinks the tiles of a small test grid)."""
+    plan = dict(conv3d_same_plan(shape, co, taps), instance="wgmma", bm=64 * wgs * mt, mt=mt,
+                bn=bn, kc=kc, stages=stages)
+    cip = plan["packed"][0]
+    return dict(plan, ci_pad=-(-cip // kc) * kc, co_pad=-(-co // bn) * bn)
+
+
+def k1_operands(shape, co, taps, cuda, seed, bias=True):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(cuda)
+    wk = (torch.randn(taps + (shape[-1], co), generator=g)
+          / (shape[-1] * np.prod(taps)) ** 0.5).to(cuda)
+    b = torch.randn((co,), generator=g).to(cuda) if bias else None
+    return x, wk, b
+
+
+@pytest.mark.parametrize("kc,bn,wgs,mt,geometry", WIDE_CASES)
+def test_wide_instance_matches_plain(cuda, kc, bn, wgs, mt, geometry):
+    """Each tile of the wide instance against the fp64 plain version, depth
+    3 under 5 taps, rings of 3 and 4 stages."""
+    w = {"patch": 20, "segments": 64 * wgs * mt + 12, "row64": 64}[geometry]
+    ci, co = 2 * kc, 3 * bn // 2
+    shape = (2, 3, 13 if geometry == "patch" else 5, w, ci)
+    taps = (5, 5, 3)
+    plan = forced_plan(shape, co, taps, wgs, mt, kc, bn, 3 + (kc + bn + wgs) % 2)
+    x, wk, b = k1_operands(shape, co, taps, cuda, seed=kc + bn + wgs + mt)
+    y = conv3d_mod._k1_launch(x, wk, b, True, torch.bfloat16, plan)
+    torch.cuda.synchronize()
+    ref = plain_fp64(x, wk, b, True)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("kc,bn,mt,w", [(16, 128, 1, 24), (32, 64, 2, 128), (64, 32, 1, 96)])
+def test_wide_instance_is_deterministic(cuda, kc, bn, mt, w):
+    """Every output is written once from a fixed order of products: two
+    launches give the same bits."""
+    shape, co, taps = (2, 4, 9, w, 2 * kc), 2 * bn, (5, 5, 5)
+    plan = forced_plan(shape, co, taps, 2, mt, kc, bn, 3)
+    x, wk, b = k1_operands(shape, co, taps, cuda, seed=kc)
+    y1 = conv3d_mod._k1_launch(x, wk, b, False, torch.float32, plan)
+    y2 = conv3d_mod._k1_launch(x, wk, b, False, torch.float32, plan)
+    assert torch.equal(y1, y2)
+    assert torch.equal(conv3d_same(x, wk, b, compute_dtype=torch.bfloat16),
+                       conv3d_same(x, wk, b, compute_dtype=torch.bfloat16))
+
+
+def k1_serving_shapes(cfg, batch=8, patch=(32, 128, 128)):
+    """(x shape, Co) of each 'same' conv of plain_forward."""
+    c = cfg.in_channels * cfg.mult_chan
+    chans = [c * 2**i for i in range(cfg.depth + 1)]
+    out, in_ch = [], cfg.in_channels
+
+    def add(level, ci, co):
+        out.append(((batch, *(s >> level for s in patch), ci), co))
+
+    for i in range(1, cfg.depth + 1):
+        add(i - 1, in_ch, chans[i - 1])
+        add(i - 1, chans[i - 1], chans[i - 1])
+        in_ch = chans[i - 1]
+    add(cfg.depth, chans[-2], chans[-1])
+    add(cfg.depth, chans[-1], chans[-1])
+    for i in range(cfg.depth, 0, -1):
+        add(i - 1, 2 * chans[i - 1], chans[i - 1])
+        add(i - 1, chans[i - 1], chans[i - 1])
+    add(0, c, cfg.out_channels)
+    return out
+
+
+def test_every_wide_serving_shape_plans_wgmma(cuda):
+    """At full width the 15 wide convs of plain_forward above the
+    bottleneck (11 distinct shapes) take the wgmma instance, compiled
+    without spills; the 1-channel input conv, conv_out and the two 2x8x8
+    bottleneck convs take the narrow one."""
+    shapes = k1_serving_shapes(ModelConfig(mult_chan=32, depth=4))
+    assert len(shapes) == 19
+    for shape, co in shapes:
+        plan = conv3d_same_plan(shape, co, (5, 5, 5), torch.bfloat16, device=cuda)
+        wide = shape[-1] > 1 and co > 1 and shape[2] * shape[3] >= 128
+        assert plan["instance"] == ("wgmma" if wide else "mma_sync"), (shape, co, plan)
+        assert plan["registers"] > 0 and (plan["local_bytes"] == 0 or not wide), (shape, co, plan)
 
 
 def test_kernel_rejects_fp32_compute(cuda):
