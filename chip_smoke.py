@@ -8,7 +8,8 @@ the serving and training paths at full width (mult_chan 32, depth 4, 5^3
 kernels):
 
   build         compile every kernel (one nvcc per source, started together);
-                whether K1's library holds warpgroup MMA (HGMMA in its SASS);
+                whether K1's and K2/K3's libraries hold warpgroup MMA (HGMMA
+                in their SASS);
   kernel        K1 (shared-kernel conv) at each conv shape of the serving net
                 at batch 8, held against its plain PyTorch version (TF32 off)
                 and timed beside that version, a cuDNN bf16 conv (yardstick
@@ -24,9 +25,10 @@ kernels):
   train_kernel  K2 (per-sample conv), K3 (its transpose, the dx) and K4 (the
                 per-sample dW) at each MoDE conv shape of training at batch
                 8, each held against its plain version in fp64 and timed
-                beside it, a cuDNN yardstick and its bound; K4's launch plan
-                at each shape (instance, tile, position groups, splits,
-                registers a thread);
+                beside it, a cuDNN yardstick and its bound; each kernel's
+                launch plan at each shape (K2/K3: instance, tile, KC, stages,
+                shared memory, grid, registers, spills; K4: instance, tile,
+                position groups, splits, registers a thread);
   train         cli.train --synthetic on the card (the training path: K2-K4
                 launch counts are read from this run; K1 runs in val/test);
   train_step    the full-width train step's time, its device profile, and
@@ -103,6 +105,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same,
     conv3d_same_persample,
     conv3d_same_persample_plain,
+    conv3d_same_persample_plan,
     conv3d_same_plain,
     conv3d_same_plan,
     conv3d_tapconcat_persample,
@@ -211,10 +214,10 @@ def per_sample_kernel_ms(kernels):
             "k6_ms": ms_of(lambda nm: "conv3d_tapconcat_kernel" in nm)}
 
 
-def k1_sass_report(ptxas_log):
-    """Whether K1's library was compiled to warpgroup MMA: HGMMA instructions
-    in its SASS (cuobjdump -sass, where the toolkit has it), and the kernels
-    whose wgmma ptxas serialized (its C7513/C7515 notes)."""
+def sass_report(name, ptxas_log):
+    """Whether a kernel library was compiled to warpgroup MMA: HGMMA
+    instructions in its SASS (cuobjdump -sass, where the toolkit has it), and
+    the kernels whose wgmma ptxas serialized (its C7513/C7515 notes)."""
     serialized = sorted({line.split("function '")[-1].rstrip("'")
                          for line in ptxas_log.splitlines()
                          if "wgmma.mma_async instructions are serialized" in line})
@@ -222,7 +225,7 @@ def k1_sass_report(ptxas_log):
     if not os.path.exists(tool):
         return {"hgmma": None, "note": "not shown: no cuobjdump in this toolkit",
                 "wgmma_serialized_in": serialized}
-    sass = subprocess.run([tool, "-sass", str(build.library_path("conv3d_same"))],
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, timeout=300).stdout
     return {"hgmma": sum("HGMMA" in line for line in sass.splitlines()),
             "kernels_with_hgmma": sum("HGMMA" in blk for blk in sass.split("Function : ")[1:]),
@@ -234,13 +237,16 @@ def build_phase():
     report = build.build(ptxas_verbose=True)
     for name, r in report.items():
         print(f"[{name}] nvcc/ptxas:\n{r['log']}", file=sys.stderr)
-    sass = k1_sass_report(report["conv3d_same"]["log"])
+    # K1 (conv3d_same) and K2/K3 (conv3d_persample) have wgmma instances
+    sass = {name: sass_report(name, report[name]["log"])
+            for name in ("conv3d_same", "conv3d_persample")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                       for k, v in report.items()},
-          "conv3d_same_sass": sass})
-    if sass["hgmma"] is not None:
-        check(sass["hgmma"] > 0, "K1's library holds no warpgroup MMA (HGMMA)")
+          **{f"{name}_sass": r for name, r in sass.items()}})
+    for name, r in sass.items():
+        if r["hgmma"] is not None:
+            check(r["hgmma"] > 0, f"{name}'s library holds no warpgroup MMA (HGMMA)")
 
 
 def kernel_phase(convs, phase="kernel"):
@@ -584,8 +590,13 @@ def train_kernel_phase(convs, phase="train_kernel"):
             plain_ms = cuda_ms(r["plain"], reps=3, warmup=1)
             library_ms = cuda_ms(r["library"], reps=5, warmup=1)
             bound_ms, bound_by = bound(flops, r["nbytes"])
-            plan = ({"plan": conv3d_dw_persample_plan(cv["x"], co, taps)}
-                    if name == "conv3d_dw_persample" else {})
+            if name == "conv3d_dw_persample":
+                plan = {"plan": conv3d_dw_persample_plan(cv["x"], co, taps)}
+            else:
+                transpose = name == "conv3d_same_persample_T"
+                shape = (n, d, h, w, co) if transpose else cv["x"]
+                plan = {"plan": conv3d_same_persample_plan(shape, ci if transpose else co, taps,
+                                                           transpose, device=dev)}
             emit({"phase": phase, "kernel": name, "convs": cv["names"],
                   "launches_per_step": r["count"], "x": list(cv["x"]), "co": co,
                   "taps": list(taps), **plan,

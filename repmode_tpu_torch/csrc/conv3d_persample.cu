@@ -7,53 +7,82 @@
 //   transposed (K3)     dx[n,p,i] = sum_t sum_o dy[n, p + t - c, o] * w[n, T-1-t, i, o]
 //
 // with zero 'same' padding, any odd (kD, kH, kW), NDHWC activations and the
-// per-sample merged MoDE kernels w of shape (N, kD, kH, kW, Ci, Co). The
-// transposed conv is the dx of the forward: it reads the FORWARD kernels with
-// the taps reversed and contracts on their output axis, so no flipped or
-// io-swapped copy of the per-sample kernels is ever written. Inputs are bf16,
-// products are summed in fp32 and the output is bf16 (the dtype contract of
+// per-sample merged MoDE kernels w of shape (N, kD, kH, kW, Ci, Co), as the
+// gate-merge einsum writes them. The transposed conv is the dx of the
+// forward: it reads the FORWARD kernels with the taps reversed and contracts
+// on their output axis, so no flipped, io-swapped, transposed or padded copy
+// of the per-sample kernels is ever written (N*T*Ci*Co*2 bytes a conv, 0.52
+// GB at the 512x512 bottleneck at batch 8). Inputs are bf16, products are
+// summed in fp32 and the output is bf16 (the dtype contract of
 // repmode_tpu/ops/mode.py:merged_conv_persample).
 //
 // What bounds it: like the shared-kernel conv (conv3d_same.cu) it does
 // 2*125*Ci*Co operations per output voxel, far above the card's ~295
 // operations per byte at every MoDE conv of the training net except the
-// 1-channel input and output convs, so it is bound by tensor-core operations.
-// The per-sample kernels add bytes: N*125*Ci*Co bf16 (0.52 GB at the 512x512
-// bottleneck conv at batch 8), each read by every block of its sample, which
-// at the deep levels is most of the traffic. The design is conv3d_same.cu's:
+// 1-channel input and output convs, so it is bound by tensor-core
+// operations. The per-sample kernels add bytes: each is read by every block
+// of its sample, so the grid keeps a sample's blocks together (below) and a
+// sample's kernel comes from device memory about once.
 //
-//   * implicit GEMM. M = a tile of BM=128 output positions inside one (n, d)
-//     plane, N = a tile of BN output channels, K = taps x input channels,
-//     walked as (dz, dy, channel chunk) stages;
-//   * per stage one input slab (the tile's rows shifted by dy, widened by the
-//     kW-1 column halo) and the kW tap matrices of that (dz, dy) go to shared
-//     memory with cp.async; all kW taps read the same slab at shifted row
-//     addresses, so the input is read kD*kH times, not 125 times;
-//   * the block's weight pointer is its sample's kernel, w + n*T*Ci*Co. The
-//     forward stores a tap's (Ci chunk x BN) tile row-major and feeds the
-//     tensor cores with ldmatrix.trans; the transposed conv copies the (BN x
-//     Co chunk) block of tap T-1-t as it lies in memory (rows = the forward's
-//     input channels, contiguous along its output channels) and feeds it with
-//     plain ldmatrix, which is the same B operand seen from the other side;
-//   * halos, channel tails and output-tile tails are zero-filled loads
-//     (cp.async src-size 0): no padded copy of the input or the kernels;
-//     depth taps outside the volume are skipped;
-//   * bf16 mma.sync.m16n8k16 with fp32 accumulators, two stage buffers;
-//   * no atomics: every output is written once, results are deterministic.
+// Both instances are one implicit GEMM: M = a tile of output positions
+// inside one (n, d) plane, N = a tile of output channels, K = taps x
+// contraction channels, walked as (dz, dy, channel chunk) stages. Per stage
+// one input slab (the tile's rows shifted by dy, widened by the kW-1 column
+// halo) and the kW tap matrices of that (dz, dy) are copied to shared
+// memory; all kW taps read the same slab at addresses shifted by dx
+// positions, so the input is read kD*kH times, not 125 times. Halos and
+// channel tails are zero-filled by the copies; depth taps outside the volume
+// are skipped. No atomics: every output is written once, so results are
+// bit-reproducible. The host's plan (ops/conv3d.py,
+// conv3d_same_persample_plan) picks the instance and its tiles.
+//
+// wide instance (packed contraction channels >= 16, output channels >= 32,
+// planes of 128 positions or more): conv3d_same.cu's warpgroup-MMA
+// instance with a per-sample weight map. wgmma.mma_async.m64n{BN}k16 with
+// both operands in shared memory, 1 or 2 warpgroups of 1, 2 or 4 m64 tiles,
+// BN = 32, 64 or 128, loads by the tensor memory accelerator (TMA) from one
+// thread onto an mbarrier a buffer of a 3-4 stage ring.
+//   * A: the slab of x, one TMA box (rows x pitch positions x 8 channels)
+//     per channel chunk, chunk-major, read through the no-swizzle K-major
+//     descriptor (an m64 tile is a 64-position row segment, or 8 x 8
+//     positions where W < 64).
+//   * B: w read in place through a 4-D tensor map over its true extents
+//     (Co, Ci, T, N); the map's out-of-bounds fill gives the zeros past Ci
+//     and Co. A stage loads the kW taps of one (dz, dy) of the block's
+//     sample.
+//       transposed: the contraction axis (the forward's Co) is contiguous,
+//       so B is K-major, exactly the operand of conv3d_same.cu: a box of KC
+//       x BN x kW in the KC*2-byte swizzle. The taps of a stage are the kW
+//       consecutive ones ending at T-1-tap0; tap dx sits in slot kW-1-dx.
+//       forward: the contraction axis (Ci) is not contiguous, Co is: B is
+//       MN-major, read with wgmma's transpose-B immediate. A box of
+//       min(BN, 64) Co x KC x kW in the (min(BN, 64)*2)-byte swizzle; BN =
+//       128 takes two boxes, one swizzle atom each, the descriptor's leading
+//       byte offset apart.
+//   * The grid is 1-D with the sample outermost, then the Co tile, the
+//     depth and the position tile: the blocks of one sample run together, so
+//     its kernel comes from device memory about once, and the blocks in
+//     flight share one Co tile of it (measured up to 10 % faster at the
+//     convs with two or more Co tiles than the Co tile fastest).
+//
+// narrow instance (the packed 1-channel input conv, conv_out and its dx,
+// the 2x8x8 bottleneck, small test shapes): the bf16 mma.sync.m16n8k16
+// kernel of the first port: BM = 128 positions, BN <= 64, KC <= 32, two
+// stage buffers filled by per-thread zero-filling cp.async, A and B by
+// ldmatrix (ldmatrix.trans for the forward's B).
 //
 // The contraction channel count (x's channels, Ci forward and Co transposed)
 // must be a multiple of 8 (16-byte copies), and so must the forward kernels'
-// output axis; the caller packs or pads the narrow 1-channel cases. wgmma,
-// TMA and a persistent schedule are left for later work.
+// output axis; the caller packs or pads the narrow 1-channel cases.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mma.sync, wgmma, mbarrier and TMA helpers
 
 namespace {
 
-constexpr int BM = 128;      // output positions per block
-constexpr int THREADS = 256; // 8 warps: 4 along M (32 rows each) x 2 along N
+constexpr int BM = 128;      // narrow instance: output positions per block
+constexpr int THREADS = 256; // narrow instance: 8 warps, 4 along M (32 rows each) x 2 along N
+constexpr int SMEM_MAX = 227 * 1024;
+constexpr int SWIZZLE_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows of 128 bytes
 
 struct PsParams {
   const __nv_bfloat16* x;  // (N, D, H, W, cin)
@@ -62,56 +91,18 @@ struct PsParams {
   int n, d, h, w, cin, cout;
   int kd, kh, kw;
   int wci, wco;         // forward: wci == cin, wco >= cout; transposed: wco == cin, wci >= cout
-  int tw;               // columns per tile (BM when W >= BM, else W)
-  int rows_per_tile;    // 1 when W >= BM, else BM / W
-  int tiles_per_row;    // ceil(W / BM) when W >= BM, else 1
+  int tw;               // columns per tile
+  int rows_per_tile;    // rows per tile
+  int tiles_per_row;    // ceil(W / tw)
   int tiles_per_plane;
   int slab_cap;         // slab positions per stage buffer
+  int stages;           // wide instance: ring depth
+  int pitch;            // wide instance: slab positions a tile row (tw + kw - 1)
+  int patch;            // wide instance: m64 tiles of 8 x 8 positions (1) or of one row (0)
+  int co_tiles;         // wide instance: output-channel tiles
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---------------------------------------------------------------- narrow instance
 
 // KC: contraction channels per stage (16 or 32). BN: output channels per
 // block (16, 32 or 64). TRANS: the transposed conv (K3). Each warp owns a
@@ -288,78 +279,425 @@ conv3d_persample_kernel(const PsParams p) {
   }
 }
 
-template <int KC, int BN, bool TRANS>
-cudaError_t launch(const PsParams& p, cudaStream_t stream) {
-  const int b_rows = TRANS ? BN : KC, b_stride = TRANS ? KC + 8 : BN + 8;
-  const size_t buf_bytes =
-      (size_t)p.slab_cap * (KC + 8) * 2 + (size_t)p.kw * b_rows * b_stride * 2;
-  const size_t smem = 2 * buf_bytes;
-  if (smem > 227 * 1024) return cudaErrorInvalidConfiguration;
-  auto kern = conv3d_persample_kernel<KC, BN, TRANS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((long long)p.n * p.d * p.tiles_per_plane),
-            (unsigned)((p.cout + BN - 1) / BN));
-  kern<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------- warpgroup MMA
+
+// WG warpgroups of MT m64 tiles each (BM = 64 * WG * MT output positions),
+// KC contraction channels a stage, BN output channels a block; TRANS: the
+// transposed conv (K3).
+template <int WG, int MT, int KC, int BN, bool TRANS>
+__global__ void __launch_bounds__(WG * 128, WG == 2 ? 2 : 4)
+conv3d_persample_kernel_wgmma(const PsParams p, const __grid_constant__ CUtensorMap tmx,
+                              const __grid_constant__ CUtensorMap tmw) {
+  constexpr int SEGS = KC / 8;    // 8-channel chunks a stage
+  constexpr int KSTEPS = KC / 16;
+  constexpr int NACC = BN / 2;
+  // a row of B in shared memory: transposed, one output channel's KC
+  // contraction channels (K-major); forward, one contraction channel's BA
+  // output channels, one swizzle atom of BA columns (MN-major)
+  constexpr int BA = BN < 64 ? BN : 64;
+  constexpr int RB = TRANS ? KC * 2 : BA * 2;
+  constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
+  constexpr uint32_t SBO_B = 8 * RB;  // between groups of 8 rows
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // weight tiles first, at a 1024-byte boundary (the swizzle pattern is a
+  // function of the address), then the chunk-major slabs
+  const uint32_t b_base = (smem_u32(smem) + SWIZZLE_ALIGN - 1) & ~(uint32_t)(SWIZZLE_ALIGN - 1);
+  const uint32_t b_stage = (uint32_t)p.kw * BN * KC * 2;
+  const uint32_t b_atom = (uint32_t)p.kw * KC * RB;  // forward: the box of one swizzle atom
+  const uint32_t a_chunk = ((uint32_t)p.slab_cap * 16 + 127) & ~127u;
+  const uint32_t a_stage = a_chunk * SEGS;
+  const uint32_t a_base = b_base + p.stages * b_stage;
+  __shared__ __align__(8) uint64_t bar_mem[4];  // one mbarrier a ring buffer
+  const uint32_t bars = smem_u32(bar_mem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int wl = (tid >> 5) & 3;  // warp within the warpgroup: rows 16 wl .. +15 of each m64
+
+  // ---- which tile this block computes: the position tile fastest, then
+  // the depth, the Co tile and the sample ----
+  int bx = blockIdx.x;
+  const int t = bx % p.tiles_per_plane;
+  bx /= p.tiles_per_plane;
+  const int dd = bx % p.d;
+  bx /= p.d;
+  const int co0 = (bx % p.co_tiles) * BN;
+  const int nn = bx / p.co_tiles;
+  const int h0 = (t / p.tiles_per_row) * p.rows_per_tile;
+  const int w0 = (t % p.tiles_per_row) * p.tw;
+  const int rows = min(p.rows_per_tile, p.h - h0);
+  const int twv = min(p.tw, p.w - w0);
+
+  const int taps = p.kd * p.kh * p.kw;
+  const int pd = (p.kd - 1) / 2, ph = (p.kh - 1) / 2, pw = (p.kw - 1) / 2;
+  const int dz_lo = max(0, pd - dd);
+  const int dz_hi = min(p.kd, p.d - dd + pd);
+  const int nchunks = (p.cin + KC - 1) / KC;
+  const int num_stages = (dz_hi - dz_lo) * p.kh * nchunks;
+
+  // slab offset of each m64 tile's first core matrix at tap dx = 0, and the
+  // stride between its 8 core matrices: a row segment of 64 positions (row
+  // mode), or 8 rows x 8 columns (patch mode)
+  uint32_t a_off[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int q = wg * MT + i;
+    if (p.patch) {
+      a_off[i] = (uint32_t)q * 8 * 16;
+    } else {
+      const int r = q * 64 / p.tw;
+      a_off[i] = (uint32_t)(r * p.pitch + q * 64 - r * p.tw) * 16;
+    }
+  }
+  const uint32_t sbo_a = p.patch ? (uint32_t)p.pitch * 16 : 128;
+
+  // One thread loads a stage by the tensor memory accelerator: a box of
+  // rows x pitch positions x 8 channels of x per channel chunk (zero past
+  // every edge), and the kW taps of this (dz, dy) of the sample's kernel,
+  // written in wgmma's swizzled layout (zero past Ci and Co). All complete
+  // on the buffer's mbarrier.
+  auto load_stage = [&](int s, int buf) {
+    if (tid != 0) return;
+    const int chunk = s % nchunks;
+    const int rest = s / nchunks;
+    const int dy = rest % p.kh;
+    const int dz = dz_lo + rest / p.kh;
+    const int ci0 = chunk * KC;
+    const uint32_t bar = bars + buf * 8;
+    mbar_expect_tx(bar, SEGS * p.slab_cap * 16 + b_stage);
+    for (int k = 0; k < SEGS; ++k) {
+      tma_load_5d(a_base + buf * a_stage + k * a_chunk, &tmx, bar, ci0 + k * 8, w0 - pw,
+                  h0 + dy - ph, dd + dz - pd, nn);
+    }
+    const int tap0 = (dz * p.kh + dy) * p.kw;
+    const uint32_t bt = b_base + buf * b_stage;
+    if (TRANS) {
+      // the reversed taps T-1-tap0-dx are the kW consecutive taps ending
+      // at T-1-tap0: tap dx lands in slot kW-1-dx
+      tma_load_4d(bt, &tmw, bar, ci0, co0, taps - tap0 - p.kw, nn);
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / BA; ++j) {
+        tma_load_4d(bt + j * b_atom, &tmw, bar, co0 + j * BA, ci0, tap0, nn);
+      }
+    }
+  };
+
+  float acc[MT][NACC];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) acc[i][j] = 0.0f;
+
+  // Ring of S >= 3 buffers, filled S - 2 stages ahead. Each stage is one
+  // commit group per warpgroup, and a warpgroup leaves a stage with at most
+  // that group in flight; so when the barrier of stage s is passed, stage
+  // s - 2 is retired everywhere and its buffer can be refilled.
+  const int S = p.stages;
+  const int ahead = S - 2;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(bars + i * 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < ahead && s < num_stages; ++s) load_stage(s, s);
+  int buf = 0, next_buf = ahead;
+  for (int s = 0; s < num_stages; ++s) {
+    mbar_wait(bars + buf * 8, (uint32_t)(s / S) & 1);  // the buffer's (s / S)-th fill
+    __syncthreads();  // every warpgroup has retired stage s - 2
+    if (s + ahead < num_stages) load_stage(s + ahead, next_buf);
+
+    // tap dx reads the slab dx positions later: all kW taps share one slab
+    const uint32_t bt = b_base + buf * b_stage;
+    const uint32_t at = a_base + buf * a_stage;
+    wgmma_fence();
+    for (int dx = 0; dx < p.kw; ++dx) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint64_t db =
+            TRANS ? smem_desc(bt + (p.kw - 1 - dx) * BN * RB + kk * 32, SBO_B, LAYOUT)
+                  : smem_desc_mn(bt + (dx * KC + kk * 16) * RB, b_atom, SBO_B, LAYOUT);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          wgmma_ss<TRANS ? 0 : 1>(
+              acc[i], smem_desc_a(at + a_off[i] + dx * 16 + kk * 2 * a_chunk, a_chunk, sbo_a), db);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    buf = buf + 1 == S ? 0 : buf + 1;
+    next_buf = next_buf + 1 == S ? 0 : next_buf + 1;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) fence_accumulators(acc[i]);
+
+  // ---- epilogue: round to bf16 and store ----
+  // accumulator 4j + 2h + e of lane l in warp wl: row 16 wl + l/4 + 8h of
+  // the m64 tile, column 8j + 2(l%4) + e (the mma.m16n8k16 C fragment, once
+  // per 8 columns)
+  const bool pairs = (p.cout & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int q = wg * MT + i;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int mm = wl * 16 + (lane >> 2) + half * 8;
+      int r, c;
+      if (p.patch) {
+        r = mm >> 3;
+        c = q * 8 + (mm & 7);
+      } else {
+        const int m = q * 64 + mm;
+        r = m / p.tw;
+        c = m - r * p.tw;
+      }
+      if (r >= rows || c >= twv) continue;
+      __nv_bfloat16* yr =
+          p.y + ((((long long)nn * p.d + dd) * p.h + h0 + r) * p.w + w0 + c) * p.cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = co0 + j * 8 + (lane & 3) * 2;
+        if (co >= p.cout) continue;
+        const float v0 = acc[i][j * 4 + half * 2], v1 = acc[i][j * 4 + half * 2 + 1];
+        if (co + 1 < p.cout && pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(yr + co) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          yr[co] = __float2bfloat16_rn(v0);
+          if (co + 1 < p.cout) yr[co + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
 }
 
+// ---------------------------------------------------------------- host
+
+size_t narrow_smem(const PsParams& p, int kc, int bn, bool trans) {
+  const int b_rows = trans ? bn : kc, b_stride = trans ? kc + 8 : bn + 8;
+  return 2 * ((size_t)p.slab_cap * (kc + 8) * 2 + (size_t)p.kw * b_rows * b_stride * 2);
+}
+
+size_t wide_smem(const PsParams& p, int kc, int bn, int stages) {
+  const size_t slab = (size_t)(p.slab_cap + 7) / 8 * 8;  // 128-byte aligned chunks
+  return (size_t)stages * ((size_t)p.kw * bn * kc * 2 + slab * kc * 2) + SWIZZLE_ALIGN;
+}
+
+using Kernel = void (*)(PsParams);
+using WideKernel = void (*)(PsParams, CUtensorMap, CUtensorMap);
+
 template <int KC, bool TRANS>
-cudaError_t launch_bn(const PsParams& p, int bn, cudaStream_t stream) {
+Kernel narrow_kernel(int bn) {
   switch (bn) {
-    case 16: return launch<KC, 16, TRANS>(p, stream);
-    case 32: return launch<KC, 32, TRANS>(p, stream);
-    case 64: return launch<KC, 64, TRANS>(p, stream);
-    default: return cudaErrorInvalidValue;
+    case 16: return &conv3d_persample_kernel<KC, 16, TRANS>;
+    case 32: return &conv3d_persample_kernel<KC, 32, TRANS>;
+    case 64: return &conv3d_persample_kernel<KC, 64, TRANS>;
+    default: return nullptr;
   }
+}
+
+// The instances of conv3d_same.cu's wide kernel: BN 32 at 1, 2 or 4 m64
+// tiles a warpgroup, BN 64 at 1 or 2, BN 128 at 1; KC = 64 up to BN = 64
+// and 2 m64 tiles.
+template <int WG, int MT, bool TRANS>
+WideKernel wide_kernel(int kc, int bn) {
+  if (MT == 4 && (bn != 32 || kc == 64)) return nullptr;
+  if (MT != 1 && bn == 128) return nullptr;
+  constexpr int M2 = MT == 4 ? 1 : MT;  // the BN = 64 and 128 instances MT names
+  switch (kc * 1000 + bn) {
+    case 16032: return &conv3d_persample_kernel_wgmma<WG, MT, 16, 32, TRANS>;
+    case 32032: return &conv3d_persample_kernel_wgmma<WG, MT, 32, 32, TRANS>;
+    case 64032: return &conv3d_persample_kernel_wgmma<WG, M2, 64, 32, TRANS>;
+    case 16064: return &conv3d_persample_kernel_wgmma<WG, M2, 16, 64, TRANS>;
+    case 32064: return &conv3d_persample_kernel_wgmma<WG, M2, 32, 64, TRANS>;
+    case 64064: return &conv3d_persample_kernel_wgmma<WG, M2, 64, 64, TRANS>;
+    case 16128: return &conv3d_persample_kernel_wgmma<WG, 1, 16, 128, TRANS>;
+    case 32128: return &conv3d_persample_kernel_wgmma<WG, 1, 32, 128, TRANS>;
+    default: return nullptr;
+  }
+}
+
+template <bool TRANS>
+WideKernel wide_kernel_of(int wgs, int mt, int kc, int bn) {
+  if (wgs == 2) {
+    return mt == 4 ? wide_kernel<2, 4, TRANS>(kc, bn)
+         : mt == 2 ? wide_kernel<2, 2, TRANS>(kc, bn) : wide_kernel<2, 1, TRANS>(kc, bn);
+  }
+  return mt == 4 ? wide_kernel<1, 4, TRANS>(kc, bn)
+       : mt == 2 ? wide_kernel<1, 2, TRANS>(kc, bn) : wide_kernel<1, 1, TRANS>(kc, bn);
+}
+
+// The planned launch: the narrow or the wide kernel (neither for a plan
+// this source has no instance for), threads, dynamic shared bytes, grid.
+struct Launch {
+  Kernel kern;      // narrow instance
+  WideKernel wide;  // wide instance
+  int threads;
+  size_t smem;
+  dim3 grid;
+  bool ok() const { return kern != nullptr || wide != nullptr; }
+  const void* func() const {
+    return kern != nullptr ? reinterpret_cast<const void*>(kern)
+                           : reinterpret_cast<const void*>(wide);
+  }
+};
+
+// instance: 0 narrow (mma.sync), 1 wide (wgmma, BM = 64 * warpgroups * m64
+// tiles a warpgroup, the latter given as mt: 1, 2 or 4).
+Launch plan_launch(PsParams& p, int n, int d, int h, int wl, int cin, int cout, int kd, int kh,
+                   int kw, int wci, int wco, int transpose, int instance, int bm, int mt, int bn,
+                   int kc, int stages) {
+  Launch l{nullptr, nullptr, 0, 0, dim3(1)};
+  const bool shapes_ok = transpose ? (wco == cin && wci >= cout) : (wci == cin && wco >= cout);
+  if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || n <= 0 || d <= 0 || h <= 0 || wl <= 0 ||
+      cin <= 0 || cin % 8 != 0 || cout <= 0 || wco % 8 != 0 || !shapes_ok || kc <= 0 ||
+      bn <= 0) {
+    return l;
+  }
+  p.n = n; p.d = d; p.h = h; p.w = wl; p.cin = cin; p.cout = cout;
+  p.kd = kd; p.kh = kh; p.kw = kw;
+  p.wci = wci; p.wco = wco;
+  p.stages = stages;
+  p.co_tiles = (cout + bn - 1) / bn;
+  if (instance == 1) {
+    const int wgs = bm / (64 * mt);
+    if ((mt != 1 && mt != 2 && mt != 4) || (wgs != 1 && wgs != 2) || bm != 64 * wgs * mt ||
+        stages < 3 || stages > 4) {
+      return l;
+    }
+    if (wl >= 64) {  // row mode: each m64 tile is 64 positions of one row
+      p.patch = 0;
+      p.tw = 64;  // up to 128 columns: a tensor-copy box spans at most 256
+      while (p.tw * 2 <= bm && p.tw * 2 <= wl && p.tw < 128) p.tw *= 2;
+      p.rows_per_tile = bm / p.tw;
+    } else {  // patch mode: each m64 tile is 8 rows x 8 columns
+      if (mt != 1) return l;
+      p.patch = 1;
+      p.rows_per_tile = 8;
+      p.tw = 8 * wgs;
+    }
+    p.tiles_per_row = (wl + p.tw - 1) / p.tw;
+    p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile * p.tiles_per_row;
+    p.pitch = p.tw + kw - 1;
+    p.slab_cap = p.rows_per_tile * p.pitch;
+    l.wide = transpose ? wide_kernel_of<true>(wgs, mt, kc, bn)
+                       : wide_kernel_of<false>(wgs, mt, kc, bn);
+    l.threads = wgs * 128;
+    l.smem = wide_smem(p, kc, bn, stages);
+    l.grid = dim3((unsigned)((long long)n * d * p.tiles_per_plane * p.co_tiles));
+  } else if (instance == 0) {
+    if (bm != BM || mt != 1 || stages != 2 || (kc != 16 && kc != 32)) return l;
+    if (wl >= BM) {
+      p.tw = BM;
+      p.rows_per_tile = 1;
+      p.tiles_per_row = (wl + BM - 1) / BM;
+      p.tiles_per_plane = h * p.tiles_per_row;
+    } else {
+      p.tw = wl;
+      p.rows_per_tile = BM / wl;
+      p.tiles_per_row = 1;
+      p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile;
+    }
+    p.slab_cap = p.rows_per_tile * (p.tw + kw - 1);
+    if (kc == 16) {
+      l.kern = transpose ? narrow_kernel<16, true>(bn) : narrow_kernel<16, false>(bn);
+    } else {
+      l.kern = transpose ? narrow_kernel<32, true>(bn) : narrow_kernel<32, false>(bn);
+    }
+    l.threads = THREADS;
+    l.smem = narrow_smem(p, kc, bn, transpose);
+    l.grid = dim3((unsigned)((long long)n * d * p.tiles_per_plane), (unsigned)p.co_tiles);
+  } else {
+    return l;
+  }
+  if (l.smem > SMEM_MAX) l.kern = nullptr, l.wide = nullptr;
+  return l;
+}
+
+// Tensor maps of the wide instance's TMA loads: x as (C, W, H, D, N) in
+// boxes of 8 channels x pitch columns x rows; w, the forward's kernels in
+// place, as (wco, wci, T, N) over their true extents (zeros past them), in
+// boxes of KC x BN x kW (transposed: K-major, the KC*2-byte swizzle) or of
+// min(BN, 64) x KC x kW (forward: MN-major, one swizzle atom a box).
+bool encode_maps(const PsParams& p, const void* x, const void* w, int transpose, int kc, int bn,
+                 CUtensorMap* tmx, CUtensorMap* tmw) {
+  if (!encode_activation_map(tmx, x, p.n, p.d, p.h, p.w, p.cin, p.pitch, p.rows_per_tile)) {
+    return false;
+  }
+  const cuuint64_t e = 2;  // bytes a bf16
+  const cuuint64_t wd[4] = {(cuuint64_t)p.wco, (cuuint64_t)p.wci,
+                            (cuuint64_t)p.kd * p.kh * p.kw, (cuuint64_t)p.n};
+  const cuuint64_t ws[3] = {wd[0] * e, wd[0] * wd[1] * e, wd[0] * wd[1] * wd[2] * e};
+  const int inner = transpose ? kc : (bn < 64 ? bn : 64);
+  const cuuint32_t wb[4] = {(cuuint32_t)inner, (cuuint32_t)(transpose ? bn : kc),
+                            (cuuint32_t)p.kw, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return tensor_map_encoder()(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(w), wd,
+                              ws, wb, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(inner * 2),
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 extern "C" {
 
+// What a plan launches, into out[0..4]: dynamic shared bytes, grid x, grid
+// y, registers a thread, local (spill) bytes a thread. The plan's arguments
+// are those of conv3d_persample_bf16. Returns cudaErrorInvalidValue for a
+// plan with no instance, else the cudaError_t of reading the kernel's
+// attributes.
+int conv3d_persample_plan(int n, int d, int h, int wl, int cin, int cout, int kd, int kh, int kw,
+                          int wci, int wco, int transpose, int instance, int bm, int mt, int bn,
+                          int kc, int stages, int* out) {
+  PsParams p;
+  const Launch l = plan_launch(p, n, d, h, wl, cin, cout, kd, kh, kw, wci, wco, transpose,
+                               instance, bm, mt, bn, kc, stages);
+  if (!l.ok()) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, l.func());
+  out[0] = (int)l.smem;
+  out[1] = (int)l.grid.x;
+  out[2] = (int)l.grid.y;
+  out[3] = err == cudaSuccess ? a.numRegs : -1;
+  out[4] = err == cudaSuccess ? (int)a.localSizeBytes : -1;
+  return (int)err;
+}
+
 // Launches the per-sample conv (transpose = 0, K2) or its transpose
-// (transpose = 1, K3) on `stream` and returns the cudaError_t of the launch
-// (0 on success). x: (n, d, h, wl, cin) bf16; w: (n, kd, kh, kw, wci, wco)
-// bf16, the forward's kernels in both cases; y: (n, d, h, wl, cout) bf16.
-// Does not synchronize and allocates nothing.
+// (transpose = 1, K3) as planned on `stream` and returns the cudaError_t of
+// the launch (0 on success). x: (n, d, h, wl, cin) bf16; w: (n, kd, kh, kw,
+// wci, wco) bf16, the forward's kernels in both cases; y: (n, d, h, wl,
+// cout) bf16. instance: 0 narrow (mma.sync), 1 wide (wgmma). Does not
+// synchronize and allocates nothing.
 int conv3d_persample_bf16(const void* x, const void* w, void* y, int n, int d, int h, int wl,
                           int cin, int cout, int kd, int kh, int kw, int wci, int wco,
-                          int transpose, int kc, int bn, void* stream) {
-  const bool shapes_ok = transpose ? (wco == cin && wci >= cout) : (wci == cin && wco >= cout);
-  if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || n <= 0 || d <= 0 || h <= 0 || wl <= 0 ||
-      cin <= 0 || cin % 8 != 0 || cout <= 0 || wco % 8 != 0 || !shapes_ok ||
-      (kc != 16 && kc != 32)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                          int transpose, int instance, int bm, int mt, int bn, int kc,
+                          int stages, void* stream) {
   PsParams p;
+  const Launch l = plan_launch(p, n, d, h, wl, cin, cout, kd, kh, kw, wci, wco, transpose,
+                               instance, bm, mt, bn, kc, stages);
+  if (!l.ok()) return (int)cudaErrorInvalidValue;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wt = static_cast<const __nv_bfloat16*>(w);
   p.y = static_cast<__nv_bfloat16*>(y);
-  p.n = n; p.d = d; p.h = h; p.w = wl; p.cin = cin; p.cout = cout;
-  p.kd = kd; p.kh = kh; p.kw = kw;
-  p.wci = wci; p.wco = wco;
-  if (wl >= BM) {
-    p.tw = BM;
-    p.rows_per_tile = 1;
-    p.tiles_per_row = (wl + BM - 1) / BM;
-    p.tiles_per_plane = h * p.tiles_per_row;
-  } else {
-    p.tw = wl;
-    p.rows_per_tile = BM / wl;
-    p.tiles_per_row = 1;
-    p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile;
-  }
-  p.slab_cap = p.rows_per_tile * (p.tw + kw - 1);
+  cudaError_t err =
+      cudaFuncSetAttribute(l.func(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (kc == 16) {
-    err = transpose ? launch_bn<16, true>(p, bn, s) : launch_bn<16, false>(p, bn, s);
-  } else {
-    err = transpose ? launch_bn<32, true>(p, bn, s) : launch_bn<32, false>(p, bn, s);
+  if (l.kern != nullptr) {
+    l.kern<<<l.grid, l.threads, l.smem, s>>>(p);
+    return (int)cudaGetLastError();
   }
-  return (int)err;
+  CUtensorMap tmx, tmw;
+  if (!encode_maps(p, x, w, transpose, kc, bn, &tmx, &tmw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  l.wide<<<l.grid, l.threads, l.smem, s>>>(p, tmx, tmw);
+  return (int)cudaGetLastError();
 }
 
 const char* conv3d_persample_error_string(int err) {

@@ -69,11 +69,7 @@
 //
 // A producer warp and a persistent schedule are left for later work.
 
-#include <cuda.h>          // CUtensorMap (its encoder is fetched at run time)
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mma.sync, wgmma, mbarrier and TMA helpers
 
 namespace {
 
@@ -101,44 +97,6 @@ struct ConvParams {
   int pitch;            // wide instance: slab positions a tile row (tw + kw - 1)
   int patch;            // wide instance: m64 tiles of 8 x 8 positions (1) or of one row (0)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // ---------------------------------------------------------------- narrow instance
 
@@ -299,161 +257,6 @@ conv3d_same_kernel(const ConvParams p) {
 }
 
 // ---------------------------------------------------------------- warpgroup MMA
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// mbarrier of one ring buffer: the tensor copies of a stage complete on it.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of `parity` to complete; traps (a launch error)
-// rather than hang if it never does.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1ll << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// Keeps the compiler from moving accesses of an accumulator register across
-// the wgmma waits (it does not know that wgmma writes them asynchronously).
-template <int NACC>
-__device__ __forceinline__ void fence_accumulators(float (&d)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand in a swizzled layout:
-// start address, leading byte offset (unused by swizzled K-major layouts: 1),
-// stride byte offset (between 8-row groups), swizzle mode (bits 62-63: 1 =
-// 128-byte, 2 = 64-byte, 3 = 32-byte).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo_bytes,
-                                              uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(sbo_bytes >> 4) << 32) | (layout << 62);
-}
-
-// D (64 x N, fp32) += A (64 x 16, bf16) * B (16 x N, bf16), both K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1)
-      : "memory");
-}
-
-// Shared-memory descriptor of A in the no-swizzle K-major layout: core
-// matrices of 8 positions x 16 bytes (128 contiguous bytes), `lbo` bytes
-// apart along K and `sbo` bytes apart along M.
-__device__ __forceinline__ uint64_t smem_desc_a(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
 
 // WG consumer warpgroups of MT m64 tiles each (BM = 64 * WG * MT output
 // positions), KC input channels a stage, BN output channels a block.
@@ -789,39 +592,19 @@ Launch plan_launch(ConvParams& p, int n, int d, int h, int wl, int ci, int co, i
 // library needs no link flag beyond nvcc's defaults.
 bool encode_maps(const ConvParams& p, const void* x, const void* w, int kc, int bn,
                  CUtensorMap* tmx, CUtensorMap* tmw) {
-  static PFN_cuTensorMapEncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      return false;
-    }
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }
-  const cuuint64_t e = 2;  // bytes a bf16
-  const cuuint64_t xd[5] = {(cuuint64_t)p.ci, (cuuint64_t)p.w, (cuuint64_t)p.h,
-                            (cuuint64_t)p.d, (cuuint64_t)p.n};
-  const cuuint64_t xs[4] = {xd[0] * e, xd[0] * xd[1] * e, xd[0] * xd[1] * xd[2] * e,
-                            xd[0] * xd[1] * xd[2] * xd[3] * e};
-  const cuuint32_t xb[5] = {8, (cuuint32_t)p.pitch, (cuuint32_t)p.rows_per_tile, 1, 1};
-  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
-  if (encode(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xd, xs, xb, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+  if (!encode_activation_map(tmx, x, p.n, p.d, p.h, p.w, p.ci, p.pitch, p.rows_per_tile)) {
     return false;
   }
+  const cuuint64_t e = 2;  // bytes a bf16
   const cuuint64_t wd[3] = {(cuuint64_t)p.ci_pad, (cuuint64_t)p.co_pad,
                             (cuuint64_t)p.kd * p.kh * p.kw};
   const cuuint64_t ws[2] = {wd[0] * e, wd[0] * wd[1] * e};
   const cuuint32_t wb[3] = {(cuuint32_t)kc, (cuuint32_t)bn, (cuuint32_t)p.kw};
-  const CUtensorMapSwizzle sw = kc == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : kc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wd, ws, wb, one,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t one[3] = {1, 1, 1};
+  return tensor_map_encoder()(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wd,
+                              ws, wb, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * 2),
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -11,8 +11,10 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          from ``conv3d_same_plan``);
   conv3d_same_persample  K2 and K3, ``pallas_conv3d_same_persample``: one
                          kernel per sample, and its transpose (the dx of the
-                         merged MoDE conv) reading the forward kernels
-                         (``csrc/conv3d_persample.cu``);
+                         merged MoDE conv) reading the forward kernels in
+                         place (``csrc/conv3d_persample.cu``; its instance,
+                         warpgroup MMA or mma.sync, and tiles from
+                         ``conv3d_same_persample_plan``);
   conv3d_dw_persample    K4, ``pallas_conv3d_dw_persample``: the per-sample
                          weight gradient (``csrc/conv3d_dw_persample.cu``);
   conv3d_dpad            K5, ``pallas_conv3d_dpad``: the chainable conv of
@@ -353,17 +355,24 @@ def _k1_attributes(plan, dhw, co, taps, out_dtype) -> dict:
     Raises if the kernel's own shared memory or grid differ from the plan's."""
     n, d, h, wl = dhw
     cip, kw = plan["packed"]
-    out = (ctypes.c_int * 5)()
-    lib = build.load("conv3d_same")
-    err = lib.conv3d_same_plan(
+    return _compiled_plan("conv3d_same", plan, (
         n, d, h, wl, cip, co, taps[0], taps[1], kw, plan["ci_pad"], plan["co_pad"],
         int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"], plan["kc"],
-        plan["stages"], int(out_dtype == torch.bfloat16), out)
+        plan["stages"], int(out_dtype == torch.bfloat16)))
+
+
+def _compiled_plan(name: str, plan: dict, args) -> dict:
+    """Registers and local (spill) bytes a thread of the kernel that the C
+    ``<name>_plan(*args, out)`` of library ``name`` picks for ``plan``.
+    Raises if that kernel's shared memory or grid differ from the plan's."""
+    out = (ctypes.c_int * 5)()
+    lib = build.load(name)
+    err = getattr(lib, f"{name}_plan")(*args, out)
     if err != 0:
-        raise RuntimeError(f"conv3d_same_plan: {lib.conv3d_same_error_string(err).decode()} "
-                           f"for plan {plan}")
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}_plan: {msg} for plan {plan}")
     if [out[0], [out[1], out[2]]] != [plan["smem_bytes"], plan["grid"]]:
-        raise RuntimeError(f"conv3d_same_plan: the kernel launches {out[0]} shared bytes on a "
+        raise RuntimeError(f"{name}_plan: the kernel launches {out[0]} shared bytes on a "
                            f"{out[1]}x{out[2]} grid, the plan says {plan}")
     return {"registers": out[3], "local_bytes": out[4]}
 
@@ -462,9 +471,11 @@ def conv3d_same_persample(
 
     x: (N,D,H,W,C), w: (N,kD,kH,kW,Ci,Co) in its forward layout either way
     (see ``conv3d_same_persample_plain``). On a CUDA tensor: one launch of the
-    bf16 tensor-core kernel on the current stream (``compute_dtype`` bf16, or
-    None with a bf16 ``x``; ``out_dtype`` bf16, the default); the transposed
-    conv reads w's taps reversed and writes no copy of w. On a CPU tensor:
+    bf16 tensor-core kernel on the current stream, the instance and tiles of
+    ``conv3d_same_persample_plan`` (``compute_dtype`` bf16, or None with a
+    bf16 ``x``; ``out_dtype`` bf16, the default); both read w in place, the
+    transposed conv with its taps reversed, and write no copy of it; a
+    refused launch raises with the plan in its message. On a CPU tensor:
     the plain version. ``conv3d_same_persample.launches`` counts launches of
     the forward kernel, ``.transpose_launches`` those of the transposed one.
     """
@@ -503,6 +514,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _ps_packed_dims(cin: int, kw: int, transpose: bool):
+    """(contraction channels, kW) of the problem ``_persample_operands``
+    hands K2/K3."""
+    if cin % 8 and not transpose and kw > 1 and kw * cin <= 32:
+        cin, kw = kw * cin, 1
+    return -(-cin // 8) * 8, kw
+
+
 def _persample_operands(x: torch.Tensor, w: torch.Tensor, transpose: bool):
     """Give K2/K3 a contraction channel count (x's) and, forward, a kernel
     output axis that are multiples of 8 (16-byte copies). Only the narrow
@@ -514,15 +533,13 @@ def _persample_operands(x: torch.Tensor, w: torch.Tensor, transpose: bool):
     value on the original output channels is unchanged.
     """
     n, kd, kh, kw, ci, co = w.shape
-    cin = co if transpose else ci
-    if cin % 8 and not transpose:
-        if kw > 1 and kw * ci <= 32:
-            x = _pack_w_taps(x, kw)
-            w = w.reshape(n, kd, kh, 1, kw * ci, co)
-        pad = -x.shape[-1] % 8
-        x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
-    elif cin % 8:
-        x, w = F.pad(x, (0, -cin % 8)), F.pad(w, (0, -cin % 8))
+    cip, kw_k = _ps_packed_dims(co if transpose else ci, kw, transpose)
+    if kw_k != kw:
+        x = _pack_w_taps(x, kw)
+        w = w.reshape(n, kd, kh, 1, kw * ci, co)
+    if x.shape[-1] != cip:
+        pad = cip - x.shape[-1]
+        x, w = F.pad(x, (0, pad)), F.pad(w, (0, pad) if transpose else (0, 0, 0, pad))
     if not transpose and w.shape[-1] % 8:
         w = F.pad(w, (0, -w.shape[-1] % 8))
     return x, w
@@ -541,23 +558,96 @@ def _conv3d_same_persample_cuda(x, w, transpose, compute_dtype, out_dtype) -> to
     if (out_dtype or torch.bfloat16) != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel writes bfloat16, got out_dtype {out_dtype}")
     xb, wb = _bf16_operands(name, (x, w), compute_dtype, x.device)
-    xb, wb = _persample_operands(xb, wb, transpose)
+    plan = conv3d_same_persample_plan(tuple(x.shape), cout, (kd, kh, kw), transpose,
+                                      num_sms=_num_sms(x.device))
+    return _k23_launch(xb, wb, transpose, plan)
+
+
+def _k23_launch(x, w, transpose, plan) -> torch.Tensor:
+    """Launch K2 (K3 with ``transpose``) as ``plan`` says (its instance, bm,
+    mt, bn, kc, stages) on checked bf16 operands. The wide instance reads w
+    in place: only the narrow 1-channel convs' operands are repacked."""
+    n, d, h, wl = x.shape[:4]
+    cout = w.shape[4] if transpose else w.shape[5]
+    xb, wb = _persample_operands(x, w, transpose)
     xb, wb = _aligned(xb), _aligned(wb)
-    kw, cin = wb.shape[3], xb.shape[-1]
-    kc = 16 if cin <= 16 else 32
-    bn = 16 if cout <= 16 else (32 if cout <= 32 else 64)
+    kd, kh, kw = wb.shape[1:4]
+    cin = xb.shape[-1]
+    if [cin, kw] != plan["packed"]:
+        raise ValueError(f"conv3d_same_persample: operands packed to (Ci, kW) = ({cin}, {kw}), "
+                         f"plan {plan}")
     y = torch.empty((n, d, h, wl, cout), dtype=torch.bfloat16, device=x.device)
     lib = build.load("conv3d_persample")
     err = lib.conv3d_persample_bf16(
         xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, d, h, wl, cin, cout, kd, kh, kw,
-        wb.shape[4], wb.shape[5], int(transpose), kc, bn,
+        wb.shape[4], wb.shape[5], int(transpose), int(plan["instance"] == "wgmma"), plan["bm"],
+        plan["mt"], plan["bn"], plan["kc"], plan["stages"],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3d_persample_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
-                           f"w {tuple(w.shape)}, transpose_taps={transpose}")
+        raise RuntimeError(f"conv3d_same_persample kernel launch failed ({msg}) for x "
+                           f"{tuple(x.shape)}, w {tuple(w.shape)}, transpose_taps={transpose}, "
+                           f"plan {plan}")
     return y
+
+
+def conv3d_same_persample_plan(x_shape, co: int, taps, transpose: bool = False, *,
+                               num_sms: int = _H100_SMS, device=None) -> dict:
+    """The launch K2 (K3 with ``transpose``) makes for x (N,D,H,W,C), ``co``
+    output channels and taps (kD,kH,kW): C is the contraction axis (Ci
+    forward; the forward's Co transposed, x then being the cotangent) and
+    ``co`` the output's (Co forward, the forward's Ci transposed). After the
+    wrapper's channel packing (``packed``: C, kW).
+
+    instance "wgmma" (packed C >= 16, co >= 32 and H*W >= 128 positions a
+    plane): K1's wide tiles, KC, ring and their shrinking rule
+    (``conv3d_same_plan``), on a 1-D grid of ``blocks`` with the sample
+    outermost, then the Co tile, the depth and the position tile, so that a
+    sample's blocks run together and its kernel stays in L2. instance
+    "mma_sync" (the 1-channel input conv, conv_out and its dx, the 2x8x8
+    bottleneck): BM 128, BN 16/32/64, KC 16/32, two stages, grid (positions,
+    Co tiles). Also: dynamic shared bytes. With a CUDA ``device`` (needs the
+    card) it also reads the compiled kernel's registers and local (spill)
+    bytes a thread, and checks that the kernel computes the same shared
+    memory and grid.
+    """
+    n, d, h, wl, c = (int(v) for v in x_shape)
+    kd, kh, kw = (int(v) for v in taps)
+    cin, kw = _ps_packed_dims(c, kw, transpose)
+    co = int(co)
+    plan = None
+    if cin >= 16 and co >= 32:
+        plan = _wide_plan(n, d, h, wl, cin, co, kw, num_sms)
+    if plan is None:
+        kc = 16 if cin <= 16 else 32
+        bn = 16 if co <= 16 else (32 if co <= 32 else 64)
+        tiles, slab = _k1_tiles(h, wl, kw, 128)
+        b_rows, b_stride = (bn, kc + 8) if transpose else (kc, bn + 8)
+        plan = dict(instance="mma_sync", bm=128, mt=1, bn=bn, kc=kc, stages=2,
+                    smem_bytes=2 * (slab * (kc + 8) * 2 + kw * b_rows * b_stride * 2),
+                    grid=[n * d * tiles, -(-co // bn)])
+    else:
+        plan["grid"] = [plan["grid"][0] * plan["grid"][1], 1]
+    plan.update(packed=[cin, kw], transpose=bool(transpose),
+                blocks=plan["grid"][0] * plan["grid"][1])
+    if device is not None:
+        plan.update(_k23_attributes(plan, (n, d, h, wl), co, (kd, kh, kw)))
+    return plan
+
+
+def _k23_attributes(plan, dhw, co, taps) -> dict:
+    """The compiled kernel of a K2/K3 ``plan``: registers and local bytes a
+    thread. Raises if the kernel's own shared memory or grid differ from the
+    plan's."""
+    n, d, h, wl = dhw
+    cin, kw = plan["packed"]
+    # the operands _persample_operands makes: w (N, T, wci, wco)
+    wci, wco = (co, cin) if plan["transpose"] else (cin, -(-co // 8) * 8)
+    return _compiled_plan("conv3d_persample", plan, (
+        n, d, h, wl, cin, co, taps[0], taps[1], kw, wci, wco, int(plan["transpose"]),
+        int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"], plan["kc"],
+        plan["stages"]))
 
 
 def conv3d_dw_persample_plain(

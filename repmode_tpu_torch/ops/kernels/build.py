@@ -4,8 +4,9 @@ Each source under ``repmode_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. That keeps a build to seconds: no PyTorch headers
 are compiled. Libraries go to ``build/kernels/`` at the root of the
-checkout, named by a hash of their source and flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built when this module is
+checkout, named by a hash of their source, the local headers it includes
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is reused. Nothing is built when this module is
 imported; the first call that needs a kernel builds it.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,10 +59,26 @@ def nvcc_path() -> str:
     )
 
 
+def source_files(name: str) -> list:
+    """The source of one kernel and every local header it includes
+    (``#include "..."``, followed through the headers)."""
+    files, todo = [], [CSRC / SOURCES[name]]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(), re.M):
+            todo.append(path.parent / inc)
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str, ptxas_verbose: bool) -> Optional[subprocess.Popen]:
@@ -123,7 +141,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_same_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 19 + [ptr]
         lib.conv3d_same_bf16.restype = i32
     elif name == "conv3d_persample":
-        lib.conv3d_persample_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 14 + [ptr]
+        lib.conv3d_persample_plan.argtypes = [i32] * 18 + [ctypes.POINTER(i32)]
+        lib.conv3d_persample_plan.restype = i32
+        lib.conv3d_persample_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 18 + [ptr]
         lib.conv3d_persample_bf16.restype = i32
     elif name == "conv3d_dw_persample":
         lib.conv3d_dw_persample_splits.argtypes = [i32] * 9

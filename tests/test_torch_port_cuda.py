@@ -39,6 +39,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same,
     conv3d_same_persample,
     conv3d_same_persample_plain,
+    conv3d_same_persample_plan,
     conv3d_same_plain,
     conv3d_same_plan,
     conv3d_tapconcat_persample,
@@ -301,6 +302,120 @@ def test_persample_kernels_are_deterministic(cuda):
     assert torch.equal(conv3d_dw_persample(x, dy, *taps), conv3d_dw_persample(x, dy, *taps))
     assert torch.equal(conv3d_same_persample(dy, wk, transpose_taps=True),
                        conv3d_same_persample(dy, wk, transpose_taps=True))
+
+
+# K2 and K3's wide instance at every tile K1's wide instance takes (the
+# same WIDE_CASES: KC, BN, warpgroups, m64 tiles a warpgroup, 8x8-patch or
+# row-segment geometry), forward and transposed. C = 2 KC contraction
+# channels, Co = 1.5 BN output channels (one full and one partial Co tile;
+# for K3 the forward's Ci), taps (5, 5, 3), depth 3 under 5 taps.
+def forced_k23_plan(shape, co, taps, transpose, wgs, mt, kc, bn, stages):
+    return dict(conv3d_same_persample_plan(shape, co, taps, transpose), instance="wgmma",
+                bm=64 * wgs * mt, mt=mt, bn=bn, kc=kc, stages=stages)
+
+
+def k23_operands(n, d, h, w, c, co, taps, transpose, cuda, seed, same_x=False):
+    """x (the forward's input, or K3's cotangent) with C channels, and the
+    forward kernels w (N, taps, Ci, Co) of a conv with ``co`` output
+    channels. ``same_x``: one x for every sample, and kernels whose scale
+    differs 4x from sample to sample."""
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn((1 if same_x else n, d, h, w, c), generator=g).expand(n, d, h, w, c)
+    ci, cf = (co, c) if transpose else (c, co)
+    wk = torch.randn((n, *taps, ci, cf), generator=g) / (c * np.prod(taps)) ** 0.5
+    if same_x:
+        wk = wk * (4.0 ** torch.arange(n, dtype=wk.dtype)).view(n, 1, 1, 1, 1, 1)
+    return x.contiguous().to(cuda, bf), wk.to(cuda, bf)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("kc,bn,wgs,mt,geometry", WIDE_CASES)
+def test_k23_wide_instance_matches_plain(cuda, kc, bn, wgs, mt, geometry, transpose):
+    w = {"patch": 20, "segments": 64 * wgs * mt + 12, "row64": 64}[geometry]
+    n, d, h, c, co, taps = 2, 3, 13 if geometry == "patch" else 5, 2 * kc, 3 * bn // 2, (5, 5, 3)
+    plan = forced_k23_plan((n, d, h, w, c), co, taps, transpose, wgs, mt, kc, bn,
+                           3 + (kc + bn + wgs) % 2)
+    x, wk = k23_operands(n, d, h, w, c, co, taps, transpose, cuda, seed=kc + bn + wgs + mt)
+    y = conv3d_mod._k23_launch(x, wk, transpose, plan)
+    torch.cuda.synchronize()
+    ref = conv3d_same_persample_plain(x.double(), wk.double(), transpose_taps=transpose)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+# (N, D, H, W, C, Co, taps) at which the plan picks the wide instance, with
+# taps (5, 3, 3) (the s2d levels') and (3, 5, 1): a reversed-tap or
+# tap-index error of K3 changes the result
+K23_SAMPLE_CASES = [(4, 4, 16, 16, 32, 64, (5, 3, 3)), (4, 3, 8, 64, 64, 128, (5, 3, 3)),
+                    (3, 5, 12, 24, 48, 40, (3, 5, 1))]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("case", K23_SAMPLE_CASES)
+def test_k23_reads_each_samples_kernel(cuda, case, transpose):
+    """The same x for every sample and kernels whose scale differs 4x from
+    sample to sample: a kernel read for the wrong sample or tap shows in the
+    sample's output."""
+    n, d, h, w, c, co, taps = case
+    assert conv3d_same_persample_plan((n, d, h, w, c), co, taps, transpose)["instance"] == "wgmma"
+    x, wk = k23_operands(n, d, h, w, c, co, taps, transpose, cuda, seed=sum(case[:6]),
+                         same_x=True)
+    before = (conv3d_same_persample.launches, conv3d_same_persample.transpose_launches)
+    y = conv3d_same_persample(x, wk, transpose_taps=transpose)
+    torch.cuda.synchronize()
+    after = (conv3d_same_persample.launches, conv3d_same_persample.transpose_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == ((0, 1) if transpose else (1, 0))
+    ref = conv3d_same_persample_plain(x.double(), wk.double(), transpose_taps=transpose)
+    for i in range(n):
+        assert within_tolerance(y[i], ref[i]), (i, (y[i].double() - ref[i]).abs().max().item())
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("kc,bn,mt,w", [(16, 128, 1, 24), (32, 64, 2, 128), (64, 32, 1, 96)])
+def test_k23_wide_instance_is_deterministic(cuda, kc, bn, mt, w, transpose):
+    """Every output is written once from a fixed order of products: two
+    launches give the same bits."""
+    n, d, h, c, co, taps = 2, 4, 9, 2 * kc, 2 * bn, (5, 5, 5)
+    plan = forced_k23_plan((n, d, h, w, c), co, taps, transpose, 2, mt, kc, bn, 3)
+    x, wk = k23_operands(n, d, h, w, c, co, taps, transpose, cuda, seed=kc)
+    assert torch.equal(conv3d_mod._k23_launch(x, wk, transpose, plan),
+                       conv3d_mod._k23_launch(x, wk, transpose, plan))
+    assert torch.equal(conv3d_same_persample(x, wk, transpose_taps=transpose),
+                       conv3d_same_persample(x, wk, transpose_taps=transpose))
+
+
+def k23_training_shapes(cfg, batch=8, patch=(32, 128, 128)):
+    """(x shape, output channels, taps, transpose) of each distinct K2 and K3
+    call of a train step, native and s2d layouts."""
+    shapes = set()
+    for shape, co in k1_serving_shapes(cfg, batch, patch):  # the native forward convs
+        shapes.add((shape, co, (5, 5, 5), False))
+        if shape[-1] > 1:  # the input conv's dx is not needed
+            shapes.add((shape[:4] + (co,), shape[-1], (5, 5, 5), True))
+    c = cfg.in_channels * cfg.mult_chan
+    for level, convs in ((1, [(4 * c, 4 * c), (8 * c, 4 * c)]),
+                         (2, [(4 * c, 8 * c), (8 * c, 8 * c), (16 * c, 8 * c)])):
+        d, h, w = patch[0] >> (level - 1), patch[1] >> level, patch[2] >> level
+        for ci, co in convs:
+            shapes.add(((batch, d, h, w, ci), co, (5, 3, 3), False))
+            shapes.add(((batch, d, h, w, co), ci, (5, 3, 3), True))
+    return sorted(shapes)
+
+
+def test_every_wide_training_shape_plans_wgmma(cuda):
+    """At full width every K2 and K3 call of a train step but the 1-channel
+    convs and the 2x8x8 bottleneck takes the wgmma instance, compiled without
+    spills."""
+    shapes = k23_training_shapes(ModelConfig(mult_chan=32, depth=4))
+    wide = 0
+    for shape, co, taps, transpose in shapes:
+        plan = conv3d_same_persample_plan(shape, co, taps, transpose, device=cuda)
+        expect = shape[-1] > 1 and co > 1 and shape[2] * shape[3] >= 128
+        assert plan["instance"] == ("wgmma" if expect else "mma_sync"), (shape, co, plan)
+        assert plan["registers"] > 0 and (plan["local_bytes"] == 0 or not expect), plan
+        wide += expect
+    assert wide == len(shapes) - 7
 
 
 # K4's block tiles, one shape each: (N, D, H, W, Ci, Co). The wide instance
