@@ -8,8 +8,8 @@ the serving and training paths at full width (mult_chan 32, depth 4, 5^3
 kernels):
 
   build         compile every kernel (one nvcc per source, started together);
-                whether K1's and K2/K3's libraries hold warpgroup MMA (HGMMA
-                in their SASS);
+                whether K1's, K2/K3's and K5's libraries hold warpgroup MMA
+                (HGMMA in their SASS);
   kernel        K1 (shared-kernel conv) at each conv shape of the serving net
                 at batch 8, held against its plain PyTorch version (TF32 off)
                 and timed beside that version, a cuDNN bf16 conv (yardstick
@@ -46,7 +46,8 @@ kernels):
                 levels) at each of its conv shapes at batch 8, held against
                 its plain version in fp64 with exact-zero halo rows, timed
                 beside that version, a cuDNN bf16 conv (yardstick only) and
-                its bound; K1 at its new s2d shapes;
+                its bound; its launch plan at each shape (instance, tile, KC,
+                stages, shared memory, grid, registers, spills);
   serve_s2d     the native, XLA s2d (K1) and K5 routes on one batch against
                 each other, with their launch counts; run_eval_pass on the K5
                 route (the s2d serving path: K5's launch count is read from
@@ -99,6 +100,7 @@ from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
 from repmode_tpu_torch.ops.conv3d import (
     conv3d_dpad,
     conv3d_dpad_plain,
+    conv3d_dpad_plan,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
     conv3d_dw_persample_plan,
@@ -237,9 +239,10 @@ def build_phase():
     report = build.build(ptxas_verbose=True)
     for name, r in report.items():
         print(f"[{name}] nvcc/ptxas:\n{r['log']}", file=sys.stderr)
-    # K1 (conv3d_same) and K2/K3 (conv3d_persample) have wgmma instances
+    # K1 (conv3d_same), K2/K3 (conv3d_persample) and K5 (conv3d_dpad) have
+    # wgmma instances
     sass = {name: sass_report(name, report[name]["log"])
-            for name in ("conv3d_same", "conv3d_persample")}
+            for name in ("conv3d_same", "conv3d_persample", "conv3d_dpad")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                       for k, v in report.items()},
@@ -944,6 +947,7 @@ def s2d_kernel_phase(cfg, batch=8):
     plain version in fp64 on samples 0 and 7, halo rows exactly zero, then
     timed beside its plain version (fp32, TF32 off), a cuDNN bf16 conv over
     the padded rows (a yardstick the port does not call) and its bound.
+    The plan of each shape is printed beside its time.
     Returns K5's totals per batch. (K1 at the s2d routes' shapes is held in
     serve_s2d_phase, at every call the routes make.)"""
     convs = s2d_dpad_convs(cfg, PATCH, batch)
@@ -988,6 +992,7 @@ def s2d_kernel_phase(cfg, batch=8):
         del y, ref
         torch.cuda.empty_cache()
         kernel_ms = cuda_ms(kernel, reps=10, warmup=2)
+        plan = conv3d_dpad_plan(cv["x"], co, (kd, 3, 3), device=dev)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(library, reps=10, warmup=2)
         flops = 2.0 * n * d * h * w * kd * 9 * ci * co
@@ -995,7 +1000,8 @@ def s2d_kernel_phase(cfg, batch=8):
         bound_ms, bound_by = bound(flops, nbytes)
         emit({"phase": "s2d_kernel", "kernel": "conv3d_dpad", "convs": cv["names"],
               "launches_per_batch": count, "x_padded": list(cv["x"]), "taps": [kd, 3, 3],
-              "co": co, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "co": co, "plan": plan, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
               "library_call": "F.conv3d bf16, channels_last_3d, padding (0,1,1) over the "
                               "padded rows, bias, ReLU",
               "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kernel_ms / 1e9,

@@ -37,28 +37,16 @@
 // conv3d_same_persample_plan) picks the instance and its tiles.
 //
 // wide instance (packed contraction channels >= 16, output channels >= 32,
-// planes of 128 positions or more): conv3d_same.cu's warpgroup-MMA
-// instance with a per-sample weight map. wgmma.mma_async.m64n{BN}k16 with
-// both operands in shared memory, 1 or 2 warpgroups of 1, 2 or 4 m64 tiles,
-// BN = 32, 64 or 128, loads by the tensor memory accelerator (TMA) from one
-// thread onto an mbarrier a buffer of a 3-4 stage ring.
-//   * A: the slab of x, one TMA box (rows x pitch positions x 8 channels)
-//     per channel chunk, chunk-major, read through the no-swizzle K-major
-//     descriptor (an m64 tile is a 64-position row segment, or 8 x 8
-//     positions where W < 64).
+// planes of 128 positions or more): hopper.cuh's warpgroup-MMA conv block
+// (wgmma_conv_block: conv3d_same.cu's tiles, KC and TMA ring) with a
+// per-sample weight map. wgmma.mma_async.m64n{BN}k16 with both operands in
+// shared memory, 1 or 2 warpgroups of 1, 2 or 4 m64 tiles, BN = 32, 64 or
+// 128, a 3-4 stage ring.
 //   * B: w read in place through a 4-D tensor map over its true extents
 //     (Co, Ci, T, N); the map's out-of-bounds fill gives the zeros past Ci
-//     and Co. A stage loads the kW taps of one (dz, dy) of the block's
-//     sample.
-//       transposed: the contraction axis (the forward's Co) is contiguous,
-//       so B is K-major, exactly the operand of conv3d_same.cu: a box of KC
-//       x BN x kW in the KC*2-byte swizzle. The taps of a stage are the kW
-//       consecutive ones ending at T-1-tap0; tap dx sits in slot kW-1-dx.
-//       forward: the contraction axis (Ci) is not contiguous, Co is: B is
-//       MN-major, read with wgmma's transpose-B immediate. A box of
-//       min(BN, 64) Co x KC x kW in the (min(BN, 64)*2)-byte swizzle; BN =
-//       128 takes two boxes, one swizzle atom each, the descriptor's leading
-//       byte offset apart.
+//     and Co. The transposed conv reads it K-major with the taps reversed
+//     by the box, the forward MN-major through wgmma's transpose-B
+//     immediate.
 //   * The grid is 1-D with the sample outermost, then the Co tile, the
 //     depth and the position tile: the blocks of one sample run together, so
 //     its kernel comes from device memory about once, and the blocks in
@@ -82,7 +70,6 @@ namespace {
 constexpr int BM = 128;      // narrow instance: output positions per block
 constexpr int THREADS = 256; // narrow instance: 8 warps, 4 along M (32 rows each) x 2 along N
 constexpr int SMEM_MAX = 227 * 1024;
-constexpr int SWIZZLE_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows of 128 bytes
 
 struct PsParams {
   const __nv_bfloat16* x;  // (N, D, H, W, cin)
@@ -283,195 +270,39 @@ conv3d_persample_kernel(const PsParams p) {
 
 // WG warpgroups of MT m64 tiles each (BM = 64 * WG * MT output positions),
 // KC contraction channels a stage, BN output channels a block; TRANS: the
-// transposed conv (K3).
+// transposed conv (K3). The block itself is hopper.cuh's wgmma_conv_block.
 template <int WG, int MT, int KC, int BN, bool TRANS>
 __global__ void __launch_bounds__(WG * 128, WG == 2 ? 2 : 4)
 conv3d_persample_kernel_wgmma(const PsParams p, const __grid_constant__ CUtensorMap tmx,
                               const __grid_constant__ CUtensorMap tmw) {
-  constexpr int SEGS = KC / 8;    // 8-channel chunks a stage
-  constexpr int KSTEPS = KC / 16;
-  constexpr int NACC = BN / 2;
-  // a row of B in shared memory: transposed, one output channel's KC
-  // contraction channels (K-major); forward, one contraction channel's BA
-  // output channels, one swizzle atom of BA columns (MN-major)
-  constexpr int BA = BN < 64 ? BN : 64;
-  constexpr int RB = TRANS ? KC * 2 : BA * 2;
-  constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
-  constexpr uint32_t SBO_B = 8 * RB;  // between groups of 8 rows
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  // weight tiles first, at a 1024-byte boundary (the swizzle pattern is a
-  // function of the address), then the chunk-major slabs
-  const uint32_t b_base = (smem_u32(smem) + SWIZZLE_ALIGN - 1) & ~(uint32_t)(SWIZZLE_ALIGN - 1);
-  const uint32_t b_stage = (uint32_t)p.kw * BN * KC * 2;
-  const uint32_t b_atom = (uint32_t)p.kw * KC * RB;  // forward: the box of one swizzle atom
-  const uint32_t a_chunk = ((uint32_t)p.slab_cap * 16 + 127) & ~127u;
-  const uint32_t a_stage = a_chunk * SEGS;
-  const uint32_t a_base = b_base + p.stages * b_stage;
-  __shared__ __align__(8) uint64_t bar_mem[4];  // one mbarrier a ring buffer
-  const uint32_t bars = smem_u32(bar_mem);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wg = tid >> 7;
-  const int wl = (tid >> 5) & 3;  // warp within the warpgroup: rows 16 wl .. +15 of each m64
-
   // ---- which tile this block computes: the position tile fastest, then
   // the depth, the Co tile and the sample ----
   int bx = blockIdx.x;
-  const int t = bx % p.tiles_per_plane;
+  const int pos = bx % p.tiles_per_plane;
   bx /= p.tiles_per_plane;
-  const int dd = bx % p.d;
+  ConvTile t;
+  t.dd = bx % p.d;
   bx /= p.d;
-  const int co0 = (bx % p.co_tiles) * BN;
-  const int nn = bx / p.co_tiles;
-  const int h0 = (t / p.tiles_per_row) * p.rows_per_tile;
-  const int w0 = (t % p.tiles_per_row) * p.tw;
-  const int rows = min(p.rows_per_tile, p.h - h0);
-  const int twv = min(p.tw, p.w - w0);
+  t.co0 = (bx % p.co_tiles) * BN;
+  t.nn = bx / p.co_tiles;
+  t.wn = t.nn;  // the sample's own kernels
+  t.h0 = (pos / p.tiles_per_row) * p.rows_per_tile;
+  t.w0 = (pos % p.tiles_per_row) * p.tw;
+  t.rows = min(p.rows_per_tile, p.h - t.h0);
+  t.twv = min(p.tw, p.w - t.w0);
 
-  const int taps = p.kd * p.kh * p.kw;
-  const int pd = (p.kd - 1) / 2, ph = (p.kh - 1) / 2, pw = (p.kw - 1) / 2;
-  const int dz_lo = max(0, pd - dd);
-  const int dz_hi = min(p.kd, p.d - dd + pd);
-  const int nchunks = (p.cin + KC - 1) / KC;
-  const int num_stages = (dz_hi - dz_lo) * p.kh * nchunks;
-
-  // slab offset of each m64 tile's first core matrix at tap dx = 0, and the
-  // stride between its 8 core matrices: a row segment of 64 positions (row
-  // mode), or 8 rows x 8 columns (patch mode)
-  uint32_t a_off[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int q = wg * MT + i;
-    if (p.patch) {
-      a_off[i] = (uint32_t)q * 8 * 16;
-    } else {
-      const int r = q * 64 / p.tw;
-      a_off[i] = (uint32_t)(r * p.pitch + q * 64 - r * p.tw) * 16;
-    }
-  }
-  const uint32_t sbo_a = p.patch ? (uint32_t)p.pitch * 16 : 128;
-
-  // One thread loads a stage by the tensor memory accelerator: a box of
-  // rows x pitch positions x 8 channels of x per channel chunk (zero past
-  // every edge), and the kW taps of this (dz, dy) of the sample's kernel,
-  // written in wgmma's swizzled layout (zero past Ci and Co). All complete
-  // on the buffer's mbarrier.
-  auto load_stage = [&](int s, int buf) {
-    if (tid != 0) return;
-    const int chunk = s % nchunks;
-    const int rest = s / nchunks;
-    const int dy = rest % p.kh;
-    const int dz = dz_lo + rest / p.kh;
-    const int ci0 = chunk * KC;
-    const uint32_t bar = bars + buf * 8;
-    mbar_expect_tx(bar, SEGS * p.slab_cap * 16 + b_stage);
-    for (int k = 0; k < SEGS; ++k) {
-      tma_load_5d(a_base + buf * a_stage + k * a_chunk, &tmx, bar, ci0 + k * 8, w0 - pw,
-                  h0 + dy - ph, dd + dz - pd, nn);
-    }
-    const int tap0 = (dz * p.kh + dy) * p.kw;
-    const uint32_t bt = b_base + buf * b_stage;
-    if (TRANS) {
-      // the reversed taps T-1-tap0-dx are the kW consecutive taps ending
-      // at T-1-tap0: tap dx lands in slot kW-1-dx
-      tma_load_4d(bt, &tmw, bar, ci0, co0, taps - tap0 - p.kw, nn);
-    } else {
-#pragma unroll
-      for (int j = 0; j < BN / BA; ++j) {
-        tma_load_4d(bt + j * b_atom, &tmw, bar, co0 + j * BA, ci0, tap0, nn);
-      }
-    }
-  };
-
-  float acc[MT][NACC];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) acc[i][j] = 0.0f;
-
-  // Ring of S >= 3 buffers, filled S - 2 stages ahead. Each stage is one
-  // commit group per warpgroup, and a warpgroup leaves a stage with at most
-  // that group in flight; so when the barrier of stage s is passed, stage
-  // s - 2 is retired everywhere and its buffer can be refilled.
-  const int S = p.stages;
-  const int ahead = S - 2;
-  if (tid == 0) {
-    for (int i = 0; i < S; ++i) mbar_init(bars + i * 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  for (int s = 0; s < ahead && s < num_stages; ++s) load_stage(s, s);
-  int buf = 0, next_buf = ahead;
-  for (int s = 0; s < num_stages; ++s) {
-    mbar_wait(bars + buf * 8, (uint32_t)(s / S) & 1);  // the buffer's (s / S)-th fill
-    __syncthreads();  // every warpgroup has retired stage s - 2
-    if (s + ahead < num_stages) load_stage(s + ahead, next_buf);
-
-    // tap dx reads the slab dx positions later: all kW taps share one slab
-    const uint32_t bt = b_base + buf * b_stage;
-    const uint32_t at = a_base + buf * a_stage;
-    wgmma_fence();
-    for (int dx = 0; dx < p.kw; ++dx) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint64_t db =
-            TRANS ? smem_desc(bt + (p.kw - 1 - dx) * BN * RB + kk * 32, SBO_B, LAYOUT)
-                  : smem_desc_mn(bt + (dx * KC + kk * 16) * RB, b_atom, SBO_B, LAYOUT);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          wgmma_ss<TRANS ? 0 : 1>(
-              acc[i], smem_desc_a(at + a_off[i] + dx * 16 + kk * 2 * a_chunk, a_chunk, sbo_a), db);
-        }
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    buf = buf + 1 == S ? 0 : buf + 1;
-    next_buf = next_buf + 1 == S ? 0 : next_buf + 1;
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < MT; ++i) fence_accumulators(acc[i]);
-
-  // ---- epilogue: round to bf16 and store ----
-  // accumulator 4j + 2h + e of lane l in warp wl: row 16 wl + l/4 + 8h of
-  // the m64 tile, column 8j + 2(l%4) + e (the mma.m16n8k16 C fragment, once
-  // per 8 columns)
+  // round to bf16 and store, in pairs where Co is even
   const bool pairs = (p.cout & 1) == 0;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int q = wg * MT + i;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int mm = wl * 16 + (lane >> 2) + half * 8;
-      int r, c;
-      if (p.patch) {
-        r = mm >> 3;
-        c = q * 8 + (mm & 7);
-      } else {
-        const int m = q * 64 + mm;
-        r = m / p.tw;
-        c = m - r * p.tw;
-      }
-      if (r >= rows || c >= twv) continue;
-      __nv_bfloat16* yr =
-          p.y + ((((long long)nn * p.d + dd) * p.h + h0 + r) * p.w + w0 + c) * p.cout;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int co = co0 + j * 8 + (lane & 3) * 2;
-        if (co >= p.cout) continue;
-        const float v0 = acc[i][j * 4 + half * 2], v1 = acc[i][j * 4 + half * 2 + 1];
+  wgmma_conv_block<WG, MT, KC, BN, TRANS, 0>(
+      p, &tmx, &tmw, t, [&](__nv_bfloat16* yr, int co, float v0, float v1) {
+        if (co >= p.cout) return;
         if (co + 1 < p.cout && pairs) {
           *reinterpret_cast<__nv_bfloat162*>(yr + co) = __floats2bfloat162_rn(v0, v1);
         } else {
           yr[co] = __float2bfloat16_rn(v0);
           if (co + 1 < p.cout) yr[co + 1] = __float2bfloat16_rn(v1);
         }
-      }
-    }
-  }
+      });
 }
 
 // ---------------------------------------------------------------- host
@@ -479,11 +310,6 @@ conv3d_persample_kernel_wgmma(const PsParams p, const __grid_constant__ CUtensor
 size_t narrow_smem(const PsParams& p, int kc, int bn, bool trans) {
   const int b_rows = trans ? bn : kc, b_stride = trans ? kc + 8 : bn + 8;
   return 2 * ((size_t)p.slab_cap * (kc + 8) * 2 + (size_t)p.kw * b_rows * b_stride * 2);
-}
-
-size_t wide_smem(const PsParams& p, int kc, int bn, int stages) {
-  const size_t slab = (size_t)(p.slab_cap + 7) / 8 * 8;  // 128-byte aligned chunks
-  return (size_t)stages * ((size_t)p.kw * bn * kc * 2 + slab * kc * 2) + SWIZZLE_ALIGN;
 }
 
 using Kernel = void (*)(PsParams);
@@ -568,25 +394,11 @@ Launch plan_launch(PsParams& p, int n, int d, int h, int wl, int cin, int cout, 
         stages < 3 || stages > 4) {
       return l;
     }
-    if (wl >= 64) {  // row mode: each m64 tile is 64 positions of one row
-      p.patch = 0;
-      p.tw = 64;  // up to 128 columns: a tensor-copy box spans at most 256
-      while (p.tw * 2 <= bm && p.tw * 2 <= wl && p.tw < 128) p.tw *= 2;
-      p.rows_per_tile = bm / p.tw;
-    } else {  // patch mode: each m64 tile is 8 rows x 8 columns
-      if (mt != 1) return l;
-      p.patch = 1;
-      p.rows_per_tile = 8;
-      p.tw = 8 * wgs;
-    }
-    p.tiles_per_row = (wl + p.tw - 1) / p.tw;
-    p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile * p.tiles_per_row;
-    p.pitch = p.tw + kw - 1;
-    p.slab_cap = p.rows_per_tile * p.pitch;
+    if (!wgmma_conv_geometry(p, h, wl, kw, wgs, mt)) return l;
     l.wide = transpose ? wide_kernel_of<true>(wgs, mt, kc, bn)
                        : wide_kernel_of<false>(wgs, mt, kc, bn);
     l.threads = wgs * 128;
-    l.smem = wide_smem(p, kc, bn, stages);
+    l.smem = wgmma_conv_smem(p.slab_cap, kw, kc, bn, stages);
     l.grid = dim3((unsigned)((long long)n * d * p.tiles_per_plane * p.co_tiles));
   } else if (instance == 0) {
     if (bm != BM || mt != 1 || stages != 2 || (kc != 16 && kc != 32)) return l;
@@ -627,18 +439,9 @@ bool encode_maps(const PsParams& p, const void* x, const void* w, int transpose,
   if (!encode_activation_map(tmx, x, p.n, p.d, p.h, p.w, p.cin, p.pitch, p.rows_per_tile)) {
     return false;
   }
-  const cuuint64_t e = 2;  // bytes a bf16
-  const cuuint64_t wd[4] = {(cuuint64_t)p.wco, (cuuint64_t)p.wci,
-                            (cuuint64_t)p.kd * p.kh * p.kw, (cuuint64_t)p.n};
-  const cuuint64_t ws[3] = {wd[0] * e, wd[0] * wd[1] * e, wd[0] * wd[1] * wd[2] * e};
   const int inner = transpose ? kc : (bn < 64 ? bn : 64);
-  const cuuint32_t wb[4] = {(cuuint32_t)inner, (cuuint32_t)(transpose ? bn : kc),
-                            (cuuint32_t)p.kw, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  return tensor_map_encoder()(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(w), wd,
-                              ws, wb, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(inner * 2),
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_weight_map(tmw, w, p.n, p.kd * p.kh * p.kw, p.wci, p.wco, inner,
+                           transpose ? bn : kc, p.kw);
 }
 
 }  // namespace

@@ -76,7 +76,6 @@ namespace {
 constexpr int BM = 128;      // narrow instance: output positions per block
 constexpr int THREADS = 256; // narrow instance: 8 warps, 4 along M (32 rows each) x 2 along N
 constexpr int SMEM_MAX = 227 * 1024;
-constexpr int SWIZZLE_ALIGN = 1024;  // the 128-byte swizzle repeats every 8 rows of 128 bytes
 
 struct ConvParams {
   const __nv_bfloat16* x;  // (N, D, H, W, Ci)

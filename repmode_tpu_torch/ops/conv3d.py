@@ -19,7 +19,9 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          weight gradient (``csrc/conv3d_dw_persample.cu``);
   conv3d_dpad            K5, ``pallas_conv3d_dpad``: the chainable conv of
                          the space-to-depth serving levels on depth-padded
-                         tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``);
+                         tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``;
+                         its instance, warpgroup MMA or mma.sync, and tiles
+                         from ``conv3d_dpad_plan``);
   conv3d_tapconcat_persample  K6, the tap-concat conv of
                          ``tools/bench_enc1c1_kernel.py``: the per-sample
                          conv of a 4-lane input as one K=180 GEMM per tile,
@@ -847,13 +849,15 @@ def conv3d_dpad(
     compute dtype (x's dtype when None) with its depth halo rows zero.
 
     See ``conv3d_dpad_plain`` for the function. On a CUDA tensor: one launch
-    of the bf16 tensor-core kernel on the current stream. It takes what the
-    s2d levels of the serving net give it, and raises on anything else: x
-    contiguous bf16 NDHWC (``compute_dtype`` bf16 or None), taps (kD,3,3)
-    with kD in {3,5}, Ci and Co multiples of 128. It writes the halo rows
-    itself and makes no padded copy of x. It has no backward: with grad
-    enabled and an input that requires grad it raises. On a CPU tensor: the
-    plain version. ``conv3d_dpad.launches`` counts kernel launches.
+    of the bf16 tensor-core kernel on the current stream, the instance and
+    tiles of ``conv3d_dpad_plan``; a refused launch raises with the plan in
+    its message. It takes what the s2d levels of the serving net give it,
+    and raises on anything else: x contiguous bf16 NDHWC (``compute_dtype``
+    bf16 or None), taps (kD,3,3) with kD in {3,5}, Ci and Co multiples of
+    128. It writes the halo rows itself and makes no padded copy of x and
+    no repacked copy of w. It has no backward: with grad enabled and an
+    input that requires grad it raises. On a CPU tensor: the plain version.
+    ``conv3d_dpad.launches`` counts kernel launches.
     """
     if x.device.type == "cpu":
         odt = compute_dtype or x.dtype
@@ -898,19 +902,73 @@ def _conv3d_dpad_cuda(x, w, bias, relu, compute_dtype) -> torch.Tensor:
             raise ValueError(f"{name}: {nm} on {t.device}, x on {x.device}")
     if bias is not None and tuple(bias.shape) != (co,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} must be ({co},)")
+    return _k5_launch(x, w, bias, relu, conv3d_dpad_plan(tuple(x.shape), co, (kd, kh, kw)))
+
+
+def _k5_launch(x, w, bias, relu, plan) -> torch.Tensor:
+    """Launch K5 as ``plan`` says (its instance, bm, mt, bn, kc, stages) on
+    checked operands: x contiguous bf16, w (kD,3,3,Ci,Co) cast to bf16 and
+    read in place by either instance, bias fp32."""
+    n, dp, h, wl, ci = x.shape
+    kd, co = w.shape[0], w.shape[-1]
     wb = _aligned(w.to(torch.bfloat16))
     bf = None if bias is None else _aligned(bias.to(torch.float32))
     y = torch.empty((n, dp, h, wl, co), dtype=torch.bfloat16, device=x.device)
-    lib = build.load(name)
+    lib = build.load("conv3d_dpad")
     err = lib.conv3d_dpad_bf16(
         x.data_ptr(), wb.data_ptr(), None if bf is None else bf.data_ptr(), y.data_ptr(),
-        n, dp, h, wl, ci, co, kd, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        n, dp, h, wl, ci, co, kd, int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"],
+        plan["bn"], plan["kc"], plan["stages"], int(relu),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3d_dpad_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
-                           f"w {tuple(w.shape)}")
+        raise RuntimeError(f"conv3d_dpad kernel launch failed ({msg}) for x {tuple(x.shape)}, "
+                           f"w {tuple(w.shape)}, plan {plan}")
     return y
+
+
+def conv3d_dpad_plan(x_shape, co: int, taps, *, device=None) -> dict:
+    """The launch K5 makes for the depth-padded x (N,Dp,H,W,Ci), Co output
+    channels and taps (kD,3,3).
+
+    instance "wgmma" (H*W >= 128 positions a plane: every s2d shape of the
+    net): K1's wide tile (``conv3d_same_plan``) over the Dp planes, halo
+    planes included (their blocks write zeros), at its widest: with Ci and
+    Co multiples of 128, one m64 tile a warpgroup, 2 warpgroups (1 where W
+    < 16), BN 128, KC 32, the one tile the source compiles. K1's rule that
+    shrinks the tile of a grid under 3/4 of a wave is not applied: the s2d
+    convs give at least 320 blocks even at a batch of one. The grid is 1-D
+    with the Co tile fastest. instance "mma_sync" (planes under 128
+    positions): BM 128, BN 128, KC 32, two stages, the Co tile on grid y.
+    Also: dynamic shared bytes, grid and blocks. With a CUDA ``device``
+    (needs the card) it also reads the compiled kernel's registers and local
+    (spill) bytes a thread, and checks that the kernel computes the same
+    shared memory and grid.
+    """
+    n, dp, h, wl, ci = (int(v) for v in x_shape)
+    kd, co = int(taps[0]), int(co)
+    plan = _wide_plan(n, dp, h, wl, ci, co, 3, num_sms=0)  # 0: never shrink
+    if plan is None:
+        tiles, slab = _k1_tiles(h, wl, 3, 128)
+        plan = dict(instance="mma_sync", bm=128, mt=1, bn=128, kc=32, stages=2,
+                    smem_bytes=2 * (slab * 40 * 2 + 3 * 32 * 136 * 2),
+                    grid=[n * dp * tiles, co // 128])
+    else:
+        plan["grid"] = [plan["grid"][0] * plan["grid"][1], 1]
+    plan["blocks"] = plan["grid"][0] * plan["grid"][1]
+    if device is not None:
+        plan.update(_k5_attributes(plan, (n, dp, h, wl, ci), co, kd))
+    return plan
+
+
+def _k5_attributes(plan, shape, co, kd) -> dict:
+    """The compiled kernel of a K5 ``plan``: registers and local bytes a
+    thread. Raises if the kernel's own shared memory or grid differ from the
+    plan's."""
+    return _compiled_plan("conv3d_dpad", plan, (
+        *shape, co, kd, int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"],
+        plan["kc"], plan["stages"]))
 
 
 # ------------------------------------------------ tap-concat entry conv (K6)

@@ -153,7 +153,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
         lib.conv3d_dw_persample_bf16.restype = i32
     elif name == "conv3d_dpad":
-        lib.conv3d_dpad_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+        lib.conv3d_dpad_plan.argtypes = [i32] * 13 + [ctypes.POINTER(i32)]
+        lib.conv3d_dpad_plan.restype = i32
+        lib.conv3d_dpad_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 14 + [ptr]
         lib.conv3d_dpad_bf16.restype = i32
     elif name == "conv3d_tapconcat":
         lib.conv3d_tapconcat_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]

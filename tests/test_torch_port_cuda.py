@@ -3,7 +3,8 @@
 K1 (``conv3d_same``: its plan, and each tile of its warpgroup-MMA
 instance through forced plans), K2 and K3 (``conv3d_same_persample``, forward and
 ``transpose_taps``), K4 (``conv3d_dw_persample``, its narrow and each of its
-wide instances), K5 (``conv3d_dpad``) and K6
+wide instances), K5 (``conv3d_dpad``: its plan, each tile of its
+warpgroup-MMA instance through forced plans, its halo rows) and K6
 (``conv3d_tapconcat_persample``), the training path through K2-K4 and, under
 ``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
 space-to-depth serving routes through K1 and K5, and the space-to-depth
@@ -33,6 +34,7 @@ from repmode_tpu_torch.models.repmode import RepModeNet
 from repmode_tpu_torch.ops.conv3d import (
     conv3d_dpad,
     conv3d_dpad_plain,
+    conv3d_dpad_plan,
     conv3d_dw_persample,
     conv3d_dw_persample_plain,
     conv3d_dw_persample_plan,
@@ -581,6 +583,109 @@ def test_dpad_kernel_chain_reads_its_own_halo(cuda):
         ref = conv3d_dpad_plain(inp.double(), wk.double(), b.double(), relu=True)
         assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
     assert bool((y2[:, :pd] == 0).all()) and bool((y2[:, -pd:] == 0).all())
+
+
+# K5's wide instance through forced plans: (N, D, H, W, Ci, Co, kD,
+# warpgroups, epilogue). Row mode at W = 64 and at W = 130 (one full and
+# one partial tile row), patch mode at W = 32 (H = 13: a partial tile), W =
+# 40 and W = 12 (a partial column block); one and two warpgroups in both
+# modes; BN 128 with one, two and three Co tiles; kD 3 and 5; every
+# epilogue.
+K5_WIDE_CASES = [
+    (2, 3, 5, 64, 256, 128, 5, 2, "bias_relu"),
+    (1, 2, 3, 130, 128, 256, 3, 2, "bias"),
+    (2, 3, 13, 32, 128, 256, 5, 2, "none"),
+    (1, 3, 4, 130, 128, 128, 3, 1, "bias_relu"),
+    (2, 2, 9, 12, 128, 256, 5, 1, "bias"),
+    (1, 2, 5, 64, 256, 384, 5, 1, "bias_relu"),
+    (2, 2, 6, 40, 128, 128, 3, 1, "none"),
+]
+
+
+def forced_k5_plan(shape, co, kd, wgs, stages):
+    """The wide instance at a chosen number of warpgroups and ring depth."""
+    return dict(conv3d_dpad_plan(shape, co, (kd, 3, 3)), instance="wgmma", bm=64 * wgs, mt=1,
+                bn=128, kc=32, stages=stages)
+
+
+@pytest.mark.parametrize("stages", [3, 4])
+@pytest.mark.parametrize("case", K5_WIDE_CASES)
+def test_k5_wide_instance_matches_plain(cuda, case, stages):
+    """Each tile of the wide instance against the fp64 plain version, with
+    rings of 3 and 4 stages."""
+    n, d, h, w, ci, co, kd, wgs, epilogue = case
+    x, wk, b, relu, pd = dpad_operands((n, d, h, w, ci, co, kd, epilogue), cuda)
+    plan = forced_k5_plan(tuple(x.shape), co, kd, wgs, stages)
+    y = conv3d_mod._k5_launch(x, wk, b, relu, plan)
+    torch.cuda.synchronize()
+    ref = conv3d_dpad_plain(x.double(), wk.double(), None if b is None else b.double(), relu=relu)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert bool((y[:, :pd] == 0).all()) and bool((y[:, -pd:] == 0).all())
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+# (N, D, H, W, Ci, Co, kD, epilogue) planned wide in row and in patch mode,
+# and narrow (a plane under 128 positions)
+K5_HALO_CASES = [(2, 3, 4, 64, 128, 256, 5, "bias_relu"), (1, 2, 8, 40, 256, 128, 3, "bias"),
+                 (2, 2, 4, 8, 128, 128, 5, "bias_relu")]
+
+
+@pytest.mark.parametrize("case", K5_HALO_CASES)
+def test_k5_writes_its_halo_rows(cuda, case):
+    """The output's memory first holds NaN (a freed NaN tensor of its size,
+    which the caching allocator hands back): the kernel itself writes the
+    halo rows' zeros, and every interior value."""
+    x, wk, b, relu, pd = dpad_operands(case, cuda)
+    n, dp, h, w = x.shape[:4]
+    junk = torch.full((n, dp, h, w, wk.shape[-1]), float("nan"), dtype=torch.bfloat16,
+                      device=cuda)
+    junk_ptr = junk.data_ptr()
+    del junk
+    y = conv3d_dpad(x, wk, b, relu=relu)
+    torch.cuda.synchronize()
+    assert y.data_ptr() == junk_ptr  # the check below reads memory that held NaN
+    assert bool((y[:, :pd] == 0).all()) and bool((y[:, -pd:] == 0).all())
+    assert bool(torch.isfinite(y).all())
+    ref = conv3d_dpad_plain(x.double(), wk.double(), b.double(), relu=relu)
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+def test_k5_is_deterministic(cuda):
+    """Every output is written once from a fixed order of products: two
+    launches, and rings of 3 and 4 stages, give the same bits."""
+    x, wk, b, relu, _ = dpad_operands((2, 4, 9, 64, 256, 256, 5, "bias_relu"), cuda)
+    shape, co = tuple(x.shape), wk.shape[-1]
+    y1 = conv3d_dpad(x, wk, b, relu=relu)
+    assert torch.equal(y1, conv3d_dpad(x, wk, b, relu=relu))
+    plan = conv3d_dpad_plan(shape, co, (5, 3, 3))
+    assert plan["instance"] == "wgmma" and plan["grid"] == [plan["blocks"], 1]
+    for stages in (3, 4):
+        forced = forced_k5_plan(shape, co, 5, 2, stages)
+        assert torch.equal(conv3d_mod._k5_launch(x, wk, b, relu, forced), y1)
+
+
+def k5_serving_shapes(cfg, batch=8, patch=(32, 128, 128)):
+    """(depth-padded x shape, Co) of each K5 call of plain_forward_s2d_pallas
+    (levels 1 and 2 in s2d channels; encoder_block1.conv1 runs on K1)."""
+    c = [4 * cfg.in_channels * cfg.mult_chan * 2**i for i in range(2)]
+    out = []
+    for level, convs in ((1, [(c[0], c[0]), (2 * c[0], c[0]), (c[0], c[0])]),
+                         (2, [(c[0], c[1]), (c[1], c[1]), (2 * c[1], c[1]), (c[1], c[1])])):
+        d, h, w = patch[0] >> (level - 1), patch[1] >> level, patch[2] >> level
+        out += [((batch, d + 4, h, w, ci), co) for ci, co in convs]
+    return out
+
+
+def test_every_k5_serving_shape_plans_wgmma(cuda):
+    """At full width the 7 K5 calls (5 distinct shapes) take the wgmma
+    instance, compiled without spills, at two blocks an SM."""
+    shapes = k5_serving_shapes(ModelConfig(mult_chan=32, depth=4))
+    assert len(shapes) == 7 and len(set(shapes)) == 5
+    for shape, co in shapes:
+        plan = conv3d_dpad_plan(shape, co, (5, 3, 3), device=cuda)
+        assert plan["instance"] == "wgmma", (shape, co, plan)
+        assert plan["registers"] > 0 and plan["local_bytes"] == 0, (shape, co, plan)
+        assert plan["smem_bytes"] <= 113 * 1024, plan
 
 
 def test_dpad_kernel_refuses_autograd(cuda):
