@@ -8,8 +8,8 @@ the serving and training paths at full width (mult_chan 32, depth 4, 5^3
 kernels):
 
   build         compile every kernel (one nvcc per source, started together);
-                whether K1's, K2/K3's and K5's libraries hold warpgroup MMA
-                (HGMMA in their SASS);
+                whether K1's, K2/K3's, K4's and K5's libraries hold warpgroup
+                MMA (HGMMA in their SASS) and whether ptxas serialized any;
   kernel        K1 (shared-kernel conv) at each conv shape of the serving net
                 at batch 8, held against its plain PyTorch version (TF32 off)
                 and timed beside that version, a cuDNN bf16 conv (yardstick
@@ -28,7 +28,9 @@ kernels):
                 beside it, a cuDNN yardstick and its bound; each kernel's
                 launch plan at each shape (K2/K3: instance, tile, KC, stages,
                 shared memory, grid, registers, spills; K4: instance, tile,
-                position groups, splits, registers a thread);
+                taps a block, position groups, splits, stages, shared memory,
+                blocks, registers, spills); every plan for the card's SM
+                count, as its wrapper launches;
   train         cli.train --synthetic on the card (the training path: K2-K4
                 launch counts are read from this run; K1 runs in val/test);
   train_step    the full-width train step's time, its device profile, and
@@ -212,6 +214,7 @@ def per_sample_kernel_ms(kernels):
 
     return {"k2_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "false>" in nm),
             "k3_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "true>" in nm),
+            # K4's three instances (conv3d_dw_kernel, _wide, _wgmma) and its split sum
             "k4_ms": ms_of(lambda nm: "conv3d_dw_kernel" in nm or "sum_partials_kernel" in nm),
             "k6_ms": ms_of(lambda nm: "conv3d_tapconcat_kernel" in nm)}
 
@@ -239,17 +242,20 @@ def build_phase():
     report = build.build(ptxas_verbose=True)
     for name, r in report.items():
         print(f"[{name}] nvcc/ptxas:\n{r['log']}", file=sys.stderr)
-    # K1 (conv3d_same), K2/K3 (conv3d_persample) and K5 (conv3d_dpad) have
-    # wgmma instances
+    # K1 (conv3d_same), K2/K3 (conv3d_persample), K4 (conv3d_dw_persample)
+    # and K5 (conv3d_dpad) have wgmma instances
     sass = {name: sass_report(name, report[name]["log"])
-            for name in ("conv3d_same", "conv3d_persample", "conv3d_dpad")}
+            for name in ("conv3d_same", "conv3d_persample", "conv3d_dw_persample", "conv3d_dpad")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "num_sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                       for k, v in report.items()},
           **{f"{name}_sass": r for name, r in sass.items()}})
     for name, r in sass.items():
         if r["hgmma"] is not None:
             check(r["hgmma"] > 0, f"{name}'s library holds no warpgroup MMA (HGMMA)")
+        check(not r["wgmma_serialized_in"],
+              f"ptxas serialized the wgmma of {name}: {r['wgmma_serialized_in']}")
 
 
 def kernel_phase(convs, phase="kernel"):
@@ -594,7 +600,13 @@ def train_kernel_phase(convs, phase="train_kernel"):
             library_ms = cuda_ms(r["library"], reps=5, warmup=1)
             bound_ms, bound_by = bound(flops, r["nbytes"])
             if name == "conv3d_dw_persample":
-                plan = {"plan": conv3d_dw_persample_plan(cv["x"], co, taps)}
+                kp = conv3d_dw_persample_plan(cv["x"], co, taps, device=dev)
+                plan = {"plan": {k: kp[k] for k in (
+                    "instance", "tile_i", "tile_o", "taps_per_block", "position_groups",
+                    "splits", "stages", "shared_bytes", "blocks", "threads", "accumulators",
+                    "a_k_stride", "registers", "local_bytes")}}
+                check(kp["instance"] != "wgmma" or kp["local_bytes"] == 0,
+                      f"K4's wgmma instance spills at {cv['names']}: {kp}")
             else:
                 transpose = name == "conv3d_same_persample_T"
                 shape = (n, d, h, w, co) if transpose else cv["x"]

@@ -1,11 +1,12 @@
 // Device helpers shared by the implicit-GEMM conv kernels of the port
-// (conv3d_same.cu, conv3d_persample.cu, conv3d_dpad.cu), for Hopper (sm_90a):
+// (conv3d_same.cu, conv3d_persample.cu, conv3d_dpad.cu) and the per-sample
+// weight gradient (conv3d_dw_persample.cu), for Hopper (sm_90a):
 //
 //   * the mma.sync path: cp.async copies, ldmatrix, bf16 mma.m16n8k16;
 //   * the warpgroup-MMA path: wgmma fences and groups, the mbarriers that
 //     tensor copies complete on, the tensor memory accelerator (TMA) loads,
 //     shared-memory matrix descriptors and the m64n{32,64,128}k16 bf16 wgmma
-//     with both operands in shared memory;
+//     with both operands in shared memory, each K-major or MN-major;
 //   * one block of the warpgroup-MMA conv whose weights come in place from a
 //     tensor map (wgmma_conv_block): the wide instance of conv3d_persample.cu
 //     (K2/K3) and of conv3d_dpad.cu (K5), each a thin kernel around it;
@@ -169,17 +170,23 @@ __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo_byt
          ((uint64_t)(sbo_bytes >> 4) << 32) | (layout << 62);
 }
 
-// Shared-memory descriptor of A in the no-swizzle K-major layout: core
-// matrices of 8 positions x 16 bytes (128 contiguous bytes), `lbo` bytes
-// apart along K and `sbo` bytes apart along M.
+// Shared-memory descriptor of an operand in a no-swizzle layout: core
+// matrices of 128 contiguous bytes, `lbo` bytes apart along K and `sbo`
+// bytes apart along M (or N). K-major (A of the convs: 8 positions x 16
+// bytes of channels) or MN-major, read with wgmma's transpose immediate
+// (A and B of the weight gradient: 8 K-rows x 16 bytes along M or N); the
+// PTX ISA's canonical layouts ((8,m),(T,2k)) : ((1T,SBO),(1,LBO)) and
+// ((T,1,m),(8,k)) : ((1,T,SBO),(1T,LBO)) put the K stride in the leading
+// byte offset in both.
 __device__ __forceinline__ uint64_t smem_desc_a(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
 }
 
 // D (64 x N, fp32) += A (64 x 16, bf16) * B (16 x N, bf16), both in shared
-// memory; A K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
-template <int TRANS_B = 0>
+// memory; A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1), B K-major
+// (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B = 0, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -188,16 +195,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n"
+      "%16, %17, p, 1, 1, %20, %19;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A)
       : "memory");
 }
 
-template <int TRANS_B = 0>
+template <int TRANS_B = 0, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -208,7 +215,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -216,11 +223,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A)
       : "memory");
 }
 
-template <int TRANS_B = 0>
+template <int TRANS_B = 0, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -235,7 +242,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -248,7 +255,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A)
       : "memory");
 }
 

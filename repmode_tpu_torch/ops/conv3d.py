@@ -16,7 +16,9 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          warpgroup MMA or mma.sync, and tiles from
                          ``conv3d_same_persample_plan``);
   conv3d_dw_persample    K4, ``pallas_conv3d_dw_persample``: the per-sample
-                         weight gradient (``csrc/conv3d_dw_persample.cu``);
+                         weight gradient (``csrc/conv3d_dw_persample.cu``;
+                         its instance, warpgroup MMA or one of two mma.sync
+                         ones, and tiles from ``conv3d_dw_persample_plan``);
   conv3d_dpad            K5, ``pallas_conv3d_dpad``: the chainable conv of
                          the space-to-depth serving levels on depth-padded
                          tensors, fused bias+ReLU (``csrc/conv3d_dpad.cu``;
@@ -43,6 +45,7 @@ tap-major ``conv3d_same_tapmajor`` of the s2d ``conv_out``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -236,6 +239,16 @@ def _num_sms(device) -> int:
     return _SMS[idx]
 
 
+def _plan_sms(num_sms: Optional[int], device) -> int:
+    """The SM count a plan is made for: ``num_sms`` where given, else the
+    CUDA ``device``'s (what its wrapper launches with), else an H100's."""
+    if num_sms is not None:
+        return int(num_sms)
+    if device is not None and torch.device(device).type == "cuda":
+        return _num_sms(device)
+    return _H100_SMS
+
+
 def _same_packed_dims(ci: int, kw: int):
     """(Ci, kW) of the problem ``_to_multiple_of_8_channels`` hands K1."""
     if ci % 8 and kw > 1 and kw * ci <= 32:
@@ -254,7 +267,7 @@ def _k1_tiles(h: int, wl: int, kw: int, bm: int):
 
 
 def conv3d_same_plan(x_shape, co: int, taps, out_dtype=torch.float32, *,
-                     num_sms: int = _H100_SMS, device=None) -> dict:
+                     num_sms: Optional[int] = None, device=None) -> dict:
     """The launch K1 makes for x (N,D,H,W,Ci), Co output channels and taps
     (kD,kH,kW), after the wrapper's channel packing (``packed``: Ci, kW).
 
@@ -263,8 +276,9 @@ def conv3d_same_plan(x_shape, co: int, taps, out_dtype=torch.float32, *,
     positions x warpgroups (2; 1 where W < 16) x ``mt`` m64 tiles a
     warpgroup (where W >= 64: 4 at BN = 32, 2 at BN = 64); BN =
     32, 64 or 128 (Co above 128 in 128-wide tiles). A grid under 3/4 of a
-    block an SM (``num_sms``) first halves mt, then BN down to 32, then
-    takes one warpgroup. An m64 tile is 64 positions of one row where W >=
+    block an SM (``num_sms``: given, else the CUDA ``device``'s, else 132)
+    first halves mt, then BN down to 32, then takes one warpgroup. An m64
+    tile is 64 positions of one row where W >=
     64 (at most 128 columns a tile row), else 8 rows x 8 columns. KC input
     channels a stage: 64 where Ci allows and BN <= 64 (then at most 2 m64
     tiles a warpgroup), else 32, else 16, narrowed where a ring of 3 stages
@@ -283,7 +297,7 @@ def conv3d_same_plan(x_shape, co: int, taps, out_dtype=torch.float32, *,
     co = int(co)
     plan = None
     if cip >= 16 and co >= 32:
-        plan = _wide_plan(n, d, h, wl, cip, co, kw, num_sms)
+        plan = _wide_plan(n, d, h, wl, cip, co, kw, _plan_sms(num_sms, device))
     if plan is None:
         kc = 16 if cip <= 16 else 32
         bn = 16 if co <= 16 else (32 if co <= 32 else 64)
@@ -595,7 +609,7 @@ def _k23_launch(x, w, transpose, plan) -> torch.Tensor:
 
 
 def conv3d_same_persample_plan(x_shape, co: int, taps, transpose: bool = False, *,
-                               num_sms: int = _H100_SMS, device=None) -> dict:
+                               num_sms: Optional[int] = None, device=None) -> dict:
     """The launch K2 (K3 with ``transpose``) makes for x (N,D,H,W,C), ``co``
     output channels and taps (kD,kH,kW): C is the contraction axis (Ci
     forward; the forward's Co transposed, x then being the cotangent) and
@@ -604,8 +618,9 @@ def conv3d_same_persample_plan(x_shape, co: int, taps, transpose: bool = False, 
 
     instance "wgmma" (packed C >= 16, co >= 32 and H*W >= 128 positions a
     plane): K1's wide tiles, KC, ring and their shrinking rule
-    (``conv3d_same_plan``), on a 1-D grid of ``blocks`` with the sample
-    outermost, then the Co tile, the depth and the position tile, so that a
+    (``conv3d_same_plan``; ``num_sms`` as there), on a 1-D grid of
+    ``blocks`` with the sample outermost, then the Co tile, the depth and
+    the position tile, so that a
     sample's blocks run together and its kernel stays in L2. instance
     "mma_sync" (the 1-channel input conv, conv_out and its dx, the 2x8x8
     bottleneck): BM 128, BN 16/32/64, KC 16/32, two stages, grid (positions,
@@ -620,7 +635,7 @@ def conv3d_same_persample_plan(x_shape, co: int, taps, transpose: bool = False, 
     co = int(co)
     plan = None
     if cin >= 16 and co >= 32:
-        plan = _wide_plan(n, d, h, wl, cin, co, kw, num_sms)
+        plan = _wide_plan(n, d, h, wl, cin, co, kw, _plan_sms(num_sms, device))
     if plan is None:
         kc = 16 if cin <= 16 else 32
         bn = 16 if co <= 16 else (32 if co <= 32 else 64)
@@ -712,7 +727,8 @@ def conv3d_dw_persample(
     tensor: the bf16 tensor-core kernel on the current stream (one kernel,
     plus a pass that adds its per-split partial sums in a fixed order where
     the positions are split; no atomics). Its instance follows from the
-    packed channel counts (``conv3d_dw_persample_plan``). On a CPU tensor:
+    packed channel counts and the plane (``conv3d_dw_persample_plan``); a
+    refused launch raises with the plan in its message. On a CPU tensor:
     the plain version. ``conv3d_dw_persample.launches`` counts launches.
     """
     if x.device.type == "cpu":
@@ -740,39 +756,168 @@ def _conv3d_dw_persample_cuda(x, dy, kd, kh, kw, compute_dtype) -> torch.Tensor:
     xb, dyb, kw_k = _dw_operands(xb, dyb, kw)
     xb, dyb = _aligned(xb), _aligned(dyb)
     cip, cop = xb.shape[-1], dyb.shape[-1]
-    lib = build.load("conv3d_dw_persample")
-    splits = lib.conv3d_dw_persample_splits(n, d, h, wl, cip, cop, kd, kh, kw_k)
+    num_sms = _num_sms(x.device)
+    plan = _k4_plan(n, d, h, wl, cip, cop, kd, kh, kw_k, num_sms)  # conv3d_dw_persample_plan's
+    splits = plan["splits"]
     out = torch.empty((n, kd, kh, kw_k, cip, cop), dtype=torch.float32, device=x.device)
     work = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
+    lib = build.load(name)
     err = lib.conv3d_dw_persample_bf16(
         xb.data_ptr(), dyb.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
-        n, d, h, wl, cip, cop, kd, kh, kw_k, torch.cuda.current_stream(x.device).cuda_stream,
+        n, d, h, wl, cip, cop, kd, kh, kw_k, num_sms, splits,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3d_dw_persample_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
-                           f"dy {tuple(dy.shape)}, taps ({kd},{kh},{kw})")
+                           f"dy {tuple(dy.shape)}, taps ({kd},{kh},{kw}), plan {plan}")
     return _dw_unpack(out, ci, co, kw)
 
 
-def conv3d_dw_persample_plan(x_shape, co: int, taps) -> dict:
+# K4 (csrc/conv3d_dw_persample.cu: make_plan): positions a chunk of the
+# mma.sync instances and of the wgmma one, the alignment of the wgmma ring
+_K4_TP = 64
+_K4_WTP = 128
+_K4_SMEM_ALIGN = 128
+_K4_SMEM_MAX = 227 * 1024
+_K4_SMEM_TWO_BLOCKS = 113 * 1024
+
+
+def conv3d_dw_persample_plan(x_shape, co: int, taps, *, num_sms: Optional[int] = None,
+                             device=None) -> dict:
     """The launch K4 makes for x (N,D,H,W,Ci), Co channels of dy and taps
-    (kD,kH,kW): instance (wide or narrow), block tile, position groups,
-    splits, and the kernel's registers and local (spill) bytes a thread as
-    compiled. Builds the kernel if needed; needs the card."""
-    n, d, h, wl, ci = x_shape
-    kd, kh, kw = taps
-    cip, cop, kw_k = _dw_packed_dims(ci, co, kw)
-    out = (ctypes.c_int * 9)()
+    (kD,kH,kW), after the wrapper's channel packing (``packed``: Ci, Co, kW),
+    on a card of ``num_sms`` SMs (given, else the CUDA ``device``'s, else
+    132). The kernel source's ``make_plan``, in Python.
+
+    instance "wgmma" (packed Ci >= 64, Co >= 32 and H*W >= 128 positions a
+    plane): 1 warpgroup of 64 input channels, 2 where Ci >= 128 (``tile_i``
+    64 or 128); ``tile_o`` (BN) 64, 32 where Co < 64, and 128 at 1 or 3
+    taps a block with two warpgroups and Co >= 128; chunks of 128
+    positions, one row segment where W >= 128, else rows of the power of
+    two >= W (at least 8), ``a_k_stride`` bytes between the two 8-position
+    core matrices of A's k16 step (128, or pitch * 16 where a chunk row has
+    8 columns); as many ring stages (3-4) as leave two blocks an SM of one
+    warpgroup (113 KB), else as fit one block (227 KB). instance "mma_sync" (Ci
+    and Co >= 32, one of them >= 64, where wgmma does not take the shape:
+    native enc2.conv1 and the 2x8x8 bottleneck): 64x64 tiles of 64-position
+    chunks, 64x32 and 32x64 of two position groups and 128-position chunks,
+    3 stages. instance "narrow" (the rest: the 1-channel input conv,
+    conv_out, native level 1's 32->32, the s2d entry conv): 32x32 tiles, 2
+    stages. Also: taps a block, splits over positions (to about 4 waves of
+    blocks where the fp32 dW does not outweigh x and dy; about 16 blocks an
+    SM for "narrow"), dynamic shared bytes, blocks, threads a block and fp32
+    accumulators a thread. With a CUDA ``device`` (needs the card) it also
+    reads the compiled kernel's registers and local (spill) bytes a thread,
+    and checks that the kernel's own plan is this one.
+    """
+    n, d, h, wl, ci = (int(v) for v in x_shape)
+    kd, kh, kw = (int(v) for v in taps)
+    cip, cop, kw_k = _dw_packed_dims(ci, int(co), kw)
+    sms = _plan_sms(num_sms, device)
+    plan = dict(packed=[cip, cop, kw_k], **_k4_plan(n, d, h, wl, cip, cop, kd, kh, kw_k, sms))
+    if device is not None and torch.device(device).type == "cuda":
+        plan.update(_k4_attributes(plan, (n, d, h, wl), (kd, kh), sms))
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
+def _k4_plan(n, d, h, wl, ci, co, kd, kh, kw, num_sms, widest=2) -> dict:
+    """``make_plan``; ``widest`` 2: any instance, 1: the mma.sync ones, 0:
+    the narrow one. Cached (the wrapper plans every call, and the bottleneck's
+    launches take ~0.2 ms): callers copy the dict, never change it."""
+    kwb = kw if kw in (1, 3, 5) else 1
+    if widest >= 2 and ci >= 64 and co >= 32 and h * wl >= 128:
+        instance = "wgmma"
+    elif widest >= 1 and ci >= 32 and co >= 32 and (ci >= 64 or co >= 64):
+        instance = "mma_sync"
+    else:
+        instance = "narrow"
+    wgs, a_k_stride = 1, 0
+    if instance == "wgmma":
+        wgs = 2 if ci >= 128 else 1
+        bi, groups, tp = 64 * wgs, 1, _K4_WTP
+        bo = 128 if kwb != 5 and wgs == 2 and co >= 128 else (64 if co >= 64 else 32)
+        tw = tp
+        if wl < tp:  # rows of a power-of-two width: a k16 step is one row or two
+            tw = 8
+            while tw < wl:
+                tw *= 2
+        pitch = tw + kwb - 1
+        a_k_stride = 128 if tw >= 16 else pitch * 16
+        acc = kwb * bo // 2
+    else:
+        wi = 2 if instance == "mma_sync" and ci >= 64 else 1
+        wo = 2 if instance == "mma_sync" and co >= 64 else 1
+        bi, bo = (32 * wi, 32 * wo) if instance == "mma_sync" else (32, 32)
+        groups = 4 // (wi * wo) if instance == "mma_sync" else 1
+        tp = _K4_TP * groups
+        tw = tp if wl >= tp else wl
+        pitch = tw + kwb - 1
+        acc = kwb * (32 if instance == "mma_sync" else 8)
+    rows, segs = (1, -(-wl // tp)) if wl >= tp else (tp // tw, 1)
+    chunks = d * -(-h // rows) * segs
+    base = n * kd * kh * (kw // kwb) * -(-ci // bi) * -(-co // bo)
+    if instance == "narrow":
+        splits = -(-num_sms * 16 // base)
+    elif kd * kh * kw * ci * co * 4 > d * h * wl * (ci + co) * 2:
+        splits = 1  # the fp32 dW outweighs x and dy: a split-sum pass only adds bytes
+    else:
+        splits = -(-(num_sms * 8 // wgs) // base)
+    splits = max(1, min(splits, chunks))
+    per = -(-chunks // splits)
+    splits = -(-chunks // per)
+    slab_cap = rows * pitch
+    if instance == "wgmma":
+        stage = _round128(_round128(wgs * 8 * slab_cap * 16) + bo // 8 * tp * 16)
+        stages = (_K4_SMEM_TWO_BLOCKS - _K4_SMEM_ALIGN) // stage if wgs == 1 else 0
+        if stages < 3:
+            stages = (_K4_SMEM_MAX - _K4_SMEM_ALIGN) // stage
+        stages = min(4, stages)
+        if stages < 3:
+            return _k4_plan(n, d, h, wl, ci, co, kd, kh, kw, num_sms, widest=1)
+        smem = stages * stage + _K4_SMEM_ALIGN
+    elif instance == "mma_sync":
+        stages = 3
+        smem = max(3 * (slab_cap * (bi + 8) + tp * (bo + 8)) * 2,
+                   (groups - 1) * (wi * wo) * kwb * 32 * 32 * 4)
+        if smem > _K4_SMEM_MAX:  # a very narrow W makes the slab long
+            return _k4_plan(n, d, h, wl, ci, co, kd, kh, kw, num_sms, widest=0)
+    else:
+        stages = 2
+        smem = 2 * (slab_cap * 40 + _K4_TP * 40) * 2
+    return dict(instance=instance, wide=instance != "narrow", taps_per_block=kwb, tile_i=bi,
+                tile_o=bo, position_groups=groups, chunk_rows=rows, chunk_cols=tw,
+                splits=splits, stages=stages, shared_bytes=smem, blocks=base * splits,
+                threads=128 * wgs, accumulators=acc, a_k_stride=a_k_stride)
+
+
+def _round128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+_K4_INSTANCES = ("narrow", "mma_sync", "wgmma")
+
+
+def _k4_attributes(plan, dhw, taps_dh, num_sms) -> dict:
+    """Registers and local (spill) bytes a thread of the K4 kernel that the
+    source's own plan picks for these shapes. Raises if that plan differs
+    from ``plan``."""
+    out = (ctypes.c_int * 13)()
+    cip, cop, kw_k = plan["packed"]
     lib = build.load("conv3d_dw_persample")
-    err = lib.conv3d_dw_persample_plan(n, d, h, wl, cip, cop, kd, kh, kw_k, out)
+    err = lib.conv3d_dw_persample_plan(*dhw, cip, cop, *taps_dh, kw_k, num_sms, out)
     if err != 0:
         msg = lib.conv3d_dw_persample_error_string(err).decode()
-        raise RuntimeError(f"conv3d_dw_persample_plan: {msg}")
-    keys = ("wide", "taps_per_block", "tile_i", "tile_o", "position_groups", "splits",
-            "registers", "local_bytes", "shared_bytes")
-    return {"packed": [cip, cop, kw_k], **dict(zip(keys, out))}
+        raise RuntimeError(f"conv3d_dw_persample_plan: {msg} for plan {plan}")
+    keys = ("taps_per_block", "tile_i", "tile_o", "position_groups", "splits")
+    c_plan = dict(zip(keys, out[1:6]), instance=_K4_INSTANCES[out[0]], shared_bytes=out[8],
+                  stages=out[9], blocks=out[10], threads=out[11], a_k_stride=out[12])
+    if any(plan[k] != v for k, v in c_plan.items()):
+        raise RuntimeError(f"conv3d_dw_persample_plan: the kernel plans {c_plan}, "
+                           f"the host {plan}")
+    return {"registers": out[6], "local_bytes": out[7]}
 
 
 def _dw_packed_dims(ci: int, co: int, kw: int):

@@ -146,12 +146,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_persample_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 18 + [ptr]
         lib.conv3d_persample_bf16.restype = i32
     elif name == "conv3d_dw_persample":
-        lib.conv3d_dw_persample_splits.argtypes = [i32] * 9
-        lib.conv3d_dw_persample_splits.restype = i32
-        lib.conv3d_dw_persample_plan.argtypes = [i32] * 9 + [ctypes.POINTER(i32)]
+        lib.conv3d_dw_persample_plan.argtypes = [i32] * 10 + [ctypes.POINTER(i32)]
         lib.conv3d_dw_persample_plan.restype = i32
-        lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+        lib.conv3d_dw_persample_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 11 + [ptr]
         lib.conv3d_dw_persample_bf16.restype = i32
+        lib.conv3d_dw_persample_wgmma_unit.argtypes = [ptr, ptr, ptr] + [i32] * 3 + [ptr]
+        lib.conv3d_dw_persample_wgmma_unit.restype = i32
     elif name == "conv3d_dpad":
         lib.conv3d_dpad_plan.argtypes = [i32] * 13 + [ctypes.POINTER(i32)]
         lib.conv3d_dpad_plan.restype = i32

@@ -2,8 +2,9 @@
 
 K1 (``conv3d_same``: its plan, and each tile of its warpgroup-MMA
 instance through forced plans), K2 and K3 (``conv3d_same_persample``, forward and
-``transpose_taps``), K4 (``conv3d_dw_persample``, its narrow and each of its
-wide instances), K5 (``conv3d_dpad``: its plan, each tile of its
+``transpose_taps``), K4 (``conv3d_dw_persample``: its narrow and mma.sync
+wide instances, and each tile of its warpgroup-MMA instance, whose
+descriptors a one-block test holds first), K5 (``conv3d_dpad``: its plan, each tile of its
 warpgroup-MMA instance through forced plans, its halo rows) and K6
 (``conv3d_tapconcat_persample``), the training path through K2-K4 and, under
 ``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
@@ -48,6 +49,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_tapconcat_persample_plain,
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
+from repmode_tpu_torch.ops.kernels import build
 from repmode_tpu_torch.ops.mode import MergedConvPerSample
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -420,25 +422,32 @@ def test_every_wide_training_shape_plans_wgmma(cuda):
     assert wide == len(shapes) - 7
 
 
-# K4's block tiles, one shape each: (N, D, H, W, Ci, Co). The wide instance
-# takes 64x64 (64-position chunks), 64x32 and 32x64 (two position groups,
-# 128-position chunks); 32x32 tiles take the narrow instance. W = 70 gives a
-# full and a partial 64-position row segment, W = 20 six rows a 128-position
-# chunk with H = 7 not a multiple of them, W = 36 three rows, W = 130 three
-# 64-position segments; Ci = 72 and Ci = Co = 40 leave a partial channel tile.
+# K4's block tiles, one shape each: (N, D, H, W, Ci, Co). The wgmma
+# instance takes Ci >= 64 with Co >= 32 (its own tiles below); the mma.sync
+# wide instance takes 32x64 (Ci 32: two position groups, 128-position
+# chunks), and 32x32 tiles take the narrow instance. W = 70 gives a full and
+# a partial 64-position row segment, W = 20 six rows a 128-position chunk
+# with H = 7 not a multiple of them, W = 36 three rows, W = 130 three
+# 64-position segments; Ci = 72 and Ci = Co = 40 leave a partial channel
+# tile.
 K4_WIDE_CASES = {
     "64x64": (2, 3, 7, 70, 64, 128),
     "64x32": (2, 3, 7, 20, 72, 32),
     "32x64": (1, 4, 5, 36, 32, 64),
     "32x32": (2, 3, 9, 130, 40, 40),
 }
+# the instance each case plans: Ci >= 64 went to the wgmma instance
+K4_INSTANCE = {"64x64": "wgmma", "64x32": "wgmma", "32x64": "mma_sync", "32x32": "narrow"}
 
 
 def check_wide_plan(plan, tile, kw):
-    ti, to = plan["tile_i"], plan["tile_o"]
-    assert plan["taps_per_block"] == kw and f"{ti}x{to}" == tile
+    assert plan["taps_per_block"] == kw and plan["instance"] == K4_INSTANCE[tile]
     assert plan["wide"] == (tile != "32x32")
-    assert plan["position_groups"] == (2 if tile in ("64x32", "32x64") else 1)
+    if plan["instance"] == "wgmma":  # 64 input channels, Co's tile: K4_WGMMA_TILES
+        assert plan["tile_i"] == 64 and plan["position_groups"] == 1, plan
+        return
+    assert f"{plan['tile_i']}x{plan['tile_o']}" == tile
+    assert plan["position_groups"] == (2 if tile == "32x64" else 1)
 
 
 @pytest.mark.parametrize("kw", [1, 3, 5])
@@ -468,6 +477,138 @@ def test_dw_wide_instances_are_deterministic(cuda, tile):
     assert plan["splits"] > 1
     x, _, dy, taps = ps_operands((*shape, co, (5, 5, 5)), cuda)
     assert torch.equal(conv3d_dw_persample(x, dy, *taps), conv3d_dw_persample(x, dy, *taps))
+
+
+# ------------------------------------------------ K4's wgmma instance
+
+@pytest.mark.parametrize("tw", [64, 8])
+def test_dw_wgmma_descriptors_one_k16_step(cuda, tw):
+    """One block, one k16 step, taps dx = 0..4, through the wgmma
+    instance's own descriptors (A = x^T and B = dy, both MN-major without
+    swizzle, read with the transpose immediates) against an fp64 matmul: a
+    chunk row of 64 columns (the step is 16 positions of one slab row) and
+    of 8 (8 positions of each of two rows, pitch * 16 bytes apart)."""
+    pitch = tw + 4
+    slab_cap = (1 if tw >= 16 else 2) * pitch
+    rng = np.random.default_rng(tw)
+    bf = torch.bfloat16
+    xs = torch.from_numpy(rng.standard_normal((8, slab_cap, 8))).to(cuda, bf)  # chunk, pos, ch
+    ys = torch.from_numpy(rng.standard_normal((8, 128, 8))).to(cuda, bf)  # a 128-position chunk
+    out = torch.full((5, 64, 64), float("nan"), device=cuda)
+    lib = build.load("conv3d_dw_persample")
+    err = lib.conv3d_dw_persample_wgmma_unit(xs.data_ptr(), ys.data_ptr(), out.data_ptr(), tw,
+                                             pitch, slab_cap, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.conv3d_dw_persample_error_string(err).decode()
+    torch.cuda.synchronize()
+    xt = xs.double().permute(0, 2, 1).reshape(64, slab_cap)  # x^T: (channel, slab position)
+    y = ys.double().permute(1, 0, 2).reshape(128, 64)[:16]  # dy: (position, output channel)
+    for dx in range(5):
+        pos = [(q // tw) * pitch + q % tw + dx for q in range(16)]
+        ref = xt[:, pos] @ y
+        assert within_tolerance(out[dx], ref), (dx, (out[dx].double() - ref).abs().max().item())
+
+
+# The wgmma instance's tiles, (Ci, Co) each: warpgroups x Co tile. Ci = 72
+# and 136 leave a partial tile of input channels, Co = 96 and 160 one of
+# output channels; Co = 160 plans BN 128 at 1 and 3 taps a block, 64 at 5.
+K4_WGMMA_TILES = {
+    "1x32": (64, 32),
+    "1x64": (72, 64),
+    "2x64": (136, 96),
+    "2x128": (128, 160),
+}
+
+
+def k4_wgmma_case(tile, kw, w):
+    ci, co = K4_WGMMA_TILES[tile]
+    shape = (2, 3, 5 if w >= 32 else 17, w, ci)  # planes of 128 positions or more
+    plan = conv3d_dw_persample_plan(shape, co, (3, 3, kw))
+    wgs = 2 if ci >= 128 else 1
+    bn = min(int(tile.split("x")[1]), 64 if kw == 5 else 128)
+    assert plan["instance"] == "wgmma", plan
+    assert (plan["tile_i"], plan["tile_o"], plan["threads"]) == (64 * wgs, bn, 128 * wgs), plan
+    assert plan["a_k_stride"] == (128 if w > 8 else (8 + kw - 1) * 16), plan
+    return shape, co
+
+
+@pytest.mark.parametrize("w", [70, 32, 16, 8])
+@pytest.mark.parametrize("kw", [1, 3, 5])
+@pytest.mark.parametrize("tile", sorted(K4_WGMMA_TILES))
+def test_dw_wgmma_tiles_match_plain(cuda, tile, kw, w):
+    """Each tile of the wgmma instance at 1, 3 and 5 taps a block, with
+    chunk rows of 128 columns (W = 70: one partial segment), 32, 16 and 8
+    (H = 17: a partial chunk of rows), depth 3 under 3 taps."""
+    shape, co = k4_wgmma_case(tile, kw, w)
+    x, _, dy, taps = ps_operands((*shape, co, (3, 3, kw)), cuda)
+    before = conv3d_dw_persample.launches
+    y = conv3d_dw_persample(x, dy, *taps)
+    torch.cuda.synchronize()
+    assert conv3d_dw_persample.launches == before + 1
+    ref = conv3d_dw_persample_plain(x.double(), dy.double(), *taps)
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("tile", sorted(K4_WGMMA_TILES))
+def test_dw_wgmma_tiles_are_deterministic(cuda, tile):
+    """A split over positions adds its partial sums in a fixed order: two
+    launches give the same bits."""
+    ci, co = K4_WGMMA_TILES[tile]
+    taps = (5, 3, 3)
+    shape = (2, 8, 32, 64, ci)
+    plan = conv3d_dw_persample_plan(shape, co, taps)
+    assert plan["instance"] == "wgmma" and plan["splits"] > 1, plan
+    x, _, dy, _ = ps_operands((*shape, co, taps), cuda)
+    assert torch.equal(conv3d_dw_persample(x, dy, *taps), conv3d_dw_persample(x, dy, *taps))
+
+
+@pytest.mark.parametrize("taps", [(5, 5, 5), (5, 3, 3)])
+def test_dw_wgmma_reads_each_sample(cuda, taps):
+    """Sample 1 is sample 0 with x scaled by 4 (exact in bf16 and fp32):
+    its dW is 4 times sample 0's, bit for bit, and sample 0's holds the
+    plain version."""
+    n, d, h, w, ci, co = 2, 4, 8, 32, 128, 128
+    g = torch.Generator().manual_seed(11)
+    x0 = torch.randn((1, d, h, w, ci), generator=g)
+    dy0 = torch.randn((1, d, h, w, co), generator=g)
+    x = torch.cat([x0, 4 * x0]).to(cuda, torch.bfloat16)
+    dy = torch.cat([dy0, dy0]).to(cuda, torch.bfloat16)
+    assert conv3d_dw_persample_plan(x.shape, co, taps)["instance"] == "wgmma"
+    y = conv3d_dw_persample(x, dy, *taps)
+    torch.cuda.synchronize()
+    assert torch.equal(y[1], 4 * y[0])
+    assert within_tolerance(y[:1], conv3d_dw_persample_plain(x[:1].double(), dy[:1].double(),
+                                                               *taps))
+
+
+def k4_training_shapes(cfg, batch=8, patch=(32, 128, 128)):
+    """(x shape, Co, taps) of each distinct K4 call of a train step, native
+    and s2d layouts (K4 takes the forward's x and the cotangent dy)."""
+    shapes = {(s, co, t) for s, co, t, transpose in k23_training_shapes(cfg, batch, patch)
+              if not transpose}
+    c = cfg.in_channels * cfg.mult_chan
+    d, h, w = patch[0], patch[1] >> 1, patch[2] >> 1
+    shapes.add(((batch, d, h, w, 4), 4 * c, (5, 3, 3)))  # the s2d entry conv (K6's forward)
+    return sorted(shapes)
+
+
+def test_every_wide_training_shape_plans_wgmma_for_k4(cuda):
+    """At full width every K4 call of a train step with packed Ci >= 64, Co
+    >= 32 and planes of 128 positions or more takes the wgmma instance,
+    compiled without spills, the kernel's own plan equal to the host's;
+    enc2.conv1 (32 -> 64) and the 2x8x8 bottleneck keep the mma.sync wide
+    instance, the 1-channel convs, level 1's 32 -> 32 and the s2d entry conv
+    the narrow one."""
+    counts = {"wgmma": 0, "mma_sync": 0, "narrow": 0}
+    for shape, co, taps in k4_training_shapes(ModelConfig(mult_chan=32, depth=4)):
+        plan = conv3d_dw_persample_plan(shape, co, taps, device=cuda)
+        cip, cop = plan["packed"][:2]
+        expect = ("wgmma" if cip >= 64 and cop >= 32 and shape[2] * shape[3] >= 128 else
+                  "mma_sync" if cip >= 32 and cop >= 32 and max(cip, cop) >= 64 else "narrow")
+        assert plan["instance"] == expect, (shape, co, plan)
+        assert plan["registers"] > 0 and plan["local_bytes"] == 0, plan
+        counts[expect] += 1
+    assert counts == {"wgmma": 14, "mma_sync": 3, "narrow": 4}, counts
 
 
 def test_merged_conv_backward_launches_k3_and_k4(cuda):
