@@ -8,8 +8,9 @@ the serving and training paths at full width (mult_chan 32, depth 4, 5^3
 kernels):
 
   build         compile every kernel (one nvcc per source, started together);
-                whether K1's, K2/K3's, K4's and K5's libraries hold warpgroup
-                MMA (HGMMA in their SASS) and whether ptxas serialized any;
+                whether K1's, K2/K3's, K4's, K5's and K6's libraries hold
+                warpgroup MMA (HGMMA in their SASS) and whether ptxas
+                serialized any;
   kernel        K1 (shared-kernel conv) at each conv shape of the serving net
                 at batch 8, held against its plain PyTorch version (TF32 off)
                 and timed beside that version, a cuDNN bf16 conv (yardstick
@@ -57,8 +58,13 @@ kernels):
                 and two_phase (equal), beside the other two routes;
   train_s2d_kernel  K6 (the tap-concat s2d entry conv) at its training shape,
                 held against its plain version in fp64 and timed beside it, a
-                cuDNN yardstick, K2 on the same conv and its bound; K2, K3 and
-                K4 at every per-sample conv shape of the s2d train step;
+                cuDNN yardstick, K2 on the same conv, its mma.sync instance,
+                a plain write of its output (the card's write floor) and its
+                bound, with its launch plan (instance, tile, Co tile, blocks,
+                weight loads a block, shared memory, registers, spills), the
+                kernels wrapper calls launch and the bytes a call allocates
+                besides y; K2, K3 and K4 at every per-sample conv shape of
+                the s2d train step;
   train_s2d     run_experiment with the default ModelConfig (train_s2d, the JAX
                 package's default) on synthetic data (the s2d training path:
                 K6 and K2-K4 launch counts are read from this run);
@@ -114,7 +120,9 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_plan,
     conv3d_tapconcat_persample,
     conv3d_tapconcat_persample_plain,
+    conv3d_tapconcat_persample_plan,
 )
+from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
 from repmode_tpu_torch.train.loop import run_eval_pass, run_experiment
 from repmode_tpu_torch.train.state import create_train_state
@@ -185,19 +193,34 @@ def serving_convs(cfg, patch, batch):
     return convs
 
 
-def device_breakdown(fn, top=6):
-    """One call of fn under torch.profiler: device time by kernel name and
-    the device's busy share of the call's wall time. Returns (summary,
-    [(kernel name, ms)])."""
+def profiled_events(fn, calls=1):
+    """calls of fn under torch.profiler, twice: the first step is traced and
+    dropped (the schedule's warm-up), the second recorded, because a session
+    loses the device events of its first moments (3 calls of K6 recorded
+    none, 30 recorded 25). Returns ([device events of the recorded step],
+    its wall ms)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's device time repeats its kernels'
-    kernels = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    # device-side events only (a CPU op's device time repeats its kernels'),
+    # less the schedule's own step annotation on the device's timeline
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")], wall_ms
+
+
+def device_breakdown(fn, top=6):
+    """One call of fn under torch.profiler (after a warm-up call): device
+    time by kernel name and the device's busy share of the call's wall
+    time. Returns (summary, [(kernel name, ms)])."""
+    events, wall_ms = profiled_events(fn)
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in events]
     kernels.sort(key=lambda kv: -kv[1])
     busy_ms = sum(ms for _, ms in kernels)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -205,6 +228,12 @@ def device_breakdown(fn, top=6):
             "conv3d_same_ms": sum(ms for name, ms in kernels if "conv3d_same_kernel" in name),
             "conv3d_dpad_ms": sum(ms for name, ms in kernels if "conv3d_dpad_kernel" in name),
             }, kernels
+
+
+def launched_kernels(fn, calls=30):
+    """{device kernel name: launches} that the profiler recorded in calls
+    of fn (after as many calls of warm-up)."""
+    return {e.key[:80]: e.count for e in profiled_events(fn, calls)[0]}
 
 
 def per_sample_kernel_ms(kernels):
@@ -216,6 +245,7 @@ def per_sample_kernel_ms(kernels):
             "k3_ms": ms_of(lambda nm: "conv3d_persample_kernel" in nm and "true>" in nm),
             # K4's three instances (conv3d_dw_kernel, _wide, _wgmma) and its split sum
             "k4_ms": ms_of(lambda nm: "conv3d_dw_kernel" in nm or "sum_partials_kernel" in nm),
+            # K6's two instances (conv3d_tapconcat_kernel, _wgmma)
             "k6_ms": ms_of(lambda nm: "conv3d_tapconcat_kernel" in nm)}
 
 
@@ -242,10 +272,11 @@ def build_phase():
     report = build.build(ptxas_verbose=True)
     for name, r in report.items():
         print(f"[{name}] nvcc/ptxas:\n{r['log']}", file=sys.stderr)
-    # K1 (conv3d_same), K2/K3 (conv3d_persample), K4 (conv3d_dw_persample)
-    # and K5 (conv3d_dpad) have wgmma instances
+    # K1 (conv3d_same), K2/K3 (conv3d_persample), K4 (conv3d_dw_persample),
+    # K5 (conv3d_dpad) and K6 (conv3d_tapconcat) have wgmma instances
     sass = {name: sass_report(name, report[name]["log"])
-            for name in ("conv3d_same", "conv3d_persample", "conv3d_dw_persample", "conv3d_dpad")}
+            for name in ("conv3d_same", "conv3d_persample", "conv3d_dw_persample", "conv3d_dpad",
+                         "conv3d_tapconcat")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "num_sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
@@ -1246,7 +1277,11 @@ def tapconcat_kernel_phase(cfg, batch=8):
     x (8,32,64,64,4), Co = 4*mult_chan): against its plain version in fp64 on
     samples 0 and 7, then timed beside its plain version (fp32 sums, TF32
     off), a cuDNN grouped conv (a yardstick the port does not call), K2 on
-    the same conv (checked too) and its bound. Returns K6's totals."""
+    the same conv and its mma.sync instance forced at this shape (both
+    checked too), a plain write of its output (y.zero_(): the card's write
+    floor, a yardstick) and its bound; with its plan, the device kernels
+    wrapper calls launch (K6 alone, at most once a call) and the bytes a call
+    allocates besides y (none: w is read in place). Returns K6's totals."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
     bf = torch.bfloat16
@@ -1273,16 +1308,40 @@ def tapconcat_kernel_phase(cfg, batch=8):
     def library():
         return F.conv3d(xl, wl, padding=(2, 1, 1), groups=n)
 
+    plan = conv3d_tapconcat_persample_plan(x.shape, co, device=dev)
+    check(plan["instance"] == "wgmma" and plan["local_bytes"] == 0,
+          f"conv3d_tapconcat_persample: the training shape plans {plan}")
+
+    def mma_sync():
+        return conv3d_mod._k6_launch(x, wn, co, dict(plan, instance="mma_sync"))
+
+    y_floor = torch.empty((n, d, h, w, co), dtype=bf, device=dev)
     ref = conv3d_tapconcat_persample_plain(x[CHECKED_SAMPLES].double(), wn[CHECKED_SAMPLES].double())
-    ok, max_abs, top = check_samples("conv3d_tapconcat_persample", kernel(), ref, fp32_out=False)
+    y = kernel()
+    ok, max_abs, top = check_samples("conv3d_tapconcat_persample", y, ref, fp32_out=False)
     ok_k2, max_abs_k2, _ = check_samples("conv3d_same_persample (K6's conv)", k2_same_conv(), ref,
                                          fp32_out=False)
+    ok_mma, max_abs_mma, _ = check_samples("conv3d_tapconcat_persample (mma.sync)", mma_sync(),
+                                           ref, fp32_out=False)
+    deterministic = bool(torch.equal(y, kernel()))
     torch.cuda.synchronize()
-    del ref
+    del ref, y
+    calls = 30
+    launched = launched_kernels(kernel, calls)
+    # no tensor but y is allocated in a call (a copy of w would be)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = kernel()
+    torch.cuda.synchronize()
+    extra_bytes = torch.cuda.max_memory_allocated() - before - y.numel() * y.element_size()
+    del y
     kernel_ms = cuda_ms(kernel, reps=20, warmup=3)
     plain_ms = cuda_ms(plain, reps=3, warmup=1)
     library_ms = cuda_ms(library, reps=10, warmup=2)
     k2_ms = cuda_ms(k2_same_conv, reps=10, warmup=2)
+    mma_sync_ms = cuda_ms(mma_sync, reps=20, warmup=3)
+    write_floor_ms = cuda_ms(y_floor.zero_, reps=20, warmup=3)
     flops = 2.0 * n * d * h * w * 180 * co
     nbytes = x.numel() * 2 + wn.numel() * 2 + n * d * h * w * co * 2
     bound_ms, bound_by = bound(flops, nbytes)
@@ -1291,14 +1350,30 @@ def tapconcat_kernel_phase(cfg, batch=8):
            "x": [n, d, h, w, 4], "taps": [5, 3, 3], "co": co, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "F.conv3d grouped (groups=N), bf16, channels_last_3d, padding (2,1,1)",
-           "k2_same_conv_ms": k2_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "k2_same_conv_ms": k2_ms, "mma_sync_ms": mma_sync_ms,
+           "write_floor_ms": write_floor_ms, "write_floor_call": "y.zero_() (bf16, y's shape)",
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "tflops": flops / kernel_ms / 1e9,
+           "tb_per_s": nbytes / kernel_ms / 1e9, "plan": plan,
+           "wrapper_calls_profiled": calls,
+           "wrapper_launches": launched or "not shown: the profiler recorded no device event",
+           "wrapper_extra_bytes": extra_bytes,
            "max_abs_err": max_abs, "max_abs_ref": top, "k2_max_abs_err": max_abs_k2,
-           "tolerance": BF16_TOL, "ok": ok and ok_k2}
+           "mma_sync_max_abs_err": max_abs_mma, "deterministic": deterministic,
+           "tolerance": BF16_TOL, "ok": ok and ok_k2 and ok_mma and deterministic}
     emit(out)
     check(ok, f"conv3d_tapconcat_persample: kernel disagrees with the plain version ({max_abs})")
     check(ok_k2, f"conv3d_same_persample at K6's conv disagrees ({max_abs_k2})")
-    del x, w6, wn, xl, wl
+    check(ok_mma, f"conv3d_tapconcat_persample's mma.sync instance disagrees ({max_abs_mma})")
+    check(deterministic, "conv3d_tapconcat_persample: two calls differ")
+    check(extra_bytes == 0, f"conv3d_tapconcat_persample: a call allocates {extra_bytes} bytes "
+                            "besides y")
+    # K6 alone, at most once a call: the profiler may still drop an event,
+    # never add one (the wrapper's count, once a launch, is the main path's)
+    check(all("conv3d_tapconcat_kernel_wgmma" in k for k in launched)
+          and sum(launched.values()) <= calls,
+          f"conv3d_tapconcat_persample: {calls} calls launch {launched}")
+    del x, w6, wn, xl, wl, y_floor
     torch.cuda.empty_cache()
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "ops_ms": flops / PEAK_BF16_FLOPS * 1e3,

@@ -1,17 +1,21 @@
 // Device helpers shared by the implicit-GEMM conv kernels of the port
-// (conv3d_same.cu, conv3d_persample.cu, conv3d_dpad.cu) and the per-sample
-// weight gradient (conv3d_dw_persample.cu), for Hopper (sm_90a):
+// (conv3d_same.cu, conv3d_persample.cu, conv3d_dpad.cu, conv3d_tapconcat.cu)
+// and the per-sample weight gradient (conv3d_dw_persample.cu), for Hopper
+// (sm_90a):
 //
 //   * the mma.sync path: cp.async copies, ldmatrix, bf16 mma.m16n8k16;
 //   * the warpgroup-MMA path: wgmma fences and groups, the mbarriers that
-//     tensor copies complete on, the tensor memory accelerator (TMA) loads,
+//     tensor copies complete on, the tensor memory accelerator (TMA) loads
+//     and stores (and the bulk groups a store completes in), the proxy fence
+//     between shared-memory writes of threads and reads of wgmma or TMA,
 //     shared-memory matrix descriptors and the m64n{32,64,128}k16 bf16 wgmma
 //     with both operands in shared memory, each K-major or MN-major;
 //   * one block of the warpgroup-MMA conv whose weights come in place from a
 //     tensor map (wgmma_conv_block): the wide instance of conv3d_persample.cu
 //     (K2/K3) and of conv3d_dpad.cu (K5), each a thin kernel around it;
 //   * the tensor-map encoder, fetched through the runtime API (no -lcuda),
-//     and the maps of an NDHWC activation and of conv weights read in place.
+//     and the maps of an NDHWC activation (loads, and stores of an output
+//     tile) and of conv weights read in place.
 //
 // A source that includes this file is rebuilt when it changes: the kernel
 // builder (ops/kernels/build.py) hashes every local header a source includes.
@@ -34,6 +38,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// 8 bytes (a position of a 4-lane bf16 input); zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 
@@ -138,6 +148,43 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
+}
+
+// Makes this thread's writes to shared memory (st.shared, cp.async) visible
+// to the async proxy: to wgmma reading them as an operand and to a TMA store
+// reading them as its source. A barrier after it publishes them to the
+// thread that issues the read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA store of one box from shared memory (`src`, in the map's swizzle) to
+// the tensor at coordinates c0..c4; the tensor copy clips what lies past its
+// extents. Completes in this thread's current bulk group.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source (their writes to global memory may still be going).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accesses of an accumulator register across
@@ -561,6 +608,27 @@ inline CUtensorMapSwizzle swizzle_of(int bytes) {
   return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                        : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// The map of an NDHWC bf16 output as (C, W, H, D, N) in boxes of `inner`
+// channels x `cols` columns x `rows` rows, in the (inner * 2)-byte swizzle:
+// one box the staged tile of one swizzle atom of channels, stored by TMA
+// (clipped past every edge).
+inline bool encode_output_map(CUtensorMap* map, void* y, int n, int d, int h, int w, int c,
+                              int inner, int cols, int rows) {
+  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t e = 2;  // bytes a bf16
+  const cuuint64_t yd[5] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)d,
+                            (cuuint64_t)n};
+  const cuuint64_t ys[4] = {yd[0] * e, yd[0] * yd[1] * e, yd[0] * yd[1] * yd[2] * e,
+                            yd[0] * yd[1] * yd[2] * yd[3] * e};
+  const cuuint32_t yb[5] = {(cuuint32_t)inner, (cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, y, yd, ys, yb, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(inner * 2),
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The map of bf16 conv weights (samples, taps, wci, wco), read in place as

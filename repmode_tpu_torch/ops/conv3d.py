@@ -26,9 +26,12 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          from ``conv3d_dpad_plan``);
   conv3d_tapconcat_persample  K6, the tap-concat conv of
                          ``tools/bench_enc1c1_kernel.py``: the per-sample
-                         conv of a 4-lane input as one K=180 GEMM per tile,
-                         the space-to-depth entry conv of training
-                         (``csrc/conv3d_tapconcat.cu``).
+                         conv of a 4-lane input as one GEMM per tile over
+                         the concatenated taps, the space-to-depth entry
+                         conv of training (``csrc/conv3d_tapconcat.cu``;
+                         its instance, persistent warpgroup MMA or
+                         mma.sync, and tiles from
+                         ``conv3d_tapconcat_persample_plan``).
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
 (and ``conv3d_same_persample.transpose_launches`` those of K3).
@@ -1169,10 +1172,12 @@ def conv3d_tapconcat_persample(
     (K6): the space-to-depth entry conv of training (``encoder_block1.conv1``).
 
     See ``conv3d_tapconcat_persample_plain`` for the function. On a CUDA
-    tensor: one launch of the bf16 tensor-core kernel on the current stream
-    (``compute_dtype`` bf16, or None with a bf16 x; ``out_dtype`` bf16, the
-    default). It raises on another compute or output dtype, on an input with
-    other than 4 channels and on weights for taps other than (5,3,3). On a
+    tensor: one launch of the bf16 tensor-core kernel on the current stream,
+    the instance ``conv3d_tapconcat_persample_plan`` picks (``compute_dtype``
+    bf16, or None with a bf16 x; ``out_dtype`` bf16, the default); w is read
+    in place, copied only to pad Co to a multiple of 8. It raises on another
+    compute or output dtype, on an input with other than 4 channels, on
+    weights for taps other than (5,3,3) and on a launch that fails. On a
     CPU tensor: the plain version. ``conv3d_tapconcat_persample.launches``
     counts kernel launches.
     """
@@ -1205,19 +1210,99 @@ def _conv3d_tapconcat_cuda(x, wn, compute_dtype, out_dtype) -> torch.Tensor:
         raise ValueError(f"{name}: the CUDA kernel writes bfloat16, got out_dtype {out_dtype}")
     xb, wb = _bf16_operands(name, (x, wn), compute_dtype, x.device)
     co = wb.shape[-1]
-    wb = _aligned(F.pad(wb, (0, -co % 8)))  # 16-byte weight rows
-    xb = _aligned(xb)
-    y = torch.empty((n, d, h, wl, co), dtype=torch.bfloat16, device=x.device)
+    if co % 8:
+        wb = F.pad(wb, (0, -co % 8))  # 16-byte weight rows
+    plan = conv3d_tapconcat_persample_plan(tuple(x.shape), co, num_sms=_num_sms(x.device))
+    return _k6_launch(_aligned(xb), _aligned(wb), co, plan)
+
+
+def _k6_launch(xb, wb, co, plan) -> torch.Tensor:
+    """Launch K6 as ``plan`` says (its instance, on its SM count) on checked
+    operands: x contiguous bf16, w (N,180,wco) bf16 with 16-byte rows, read
+    in place by either instance."""
+    n, d, h, wl, _ = xb.shape
+    y = torch.empty((n, d, h, wl, co), dtype=torch.bfloat16, device=xb.device)
     lib = build.load("conv3d_tapconcat")
     err = lib.conv3d_tapconcat_bf16(
         xb.data_ptr(), wb.data_ptr(), y.data_ptr(), n, d, h, wl, co, wb.shape[-1],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _K6_INSTANCES.index(plan["instance"]), plan["num_sms"],
+        torch.cuda.current_stream(xb.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3d_tapconcat_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({msg}) for x {tuple(x.shape)}, "
-                           f"wn {tuple(wn.shape)}")
+        raise RuntimeError(f"conv3d_tapconcat_persample kernel launch failed ({msg}) for x "
+                           f"{tuple(xb.shape)}, wn {tuple(wb.shape)}, plan {plan}")
     return y
+
+
+_K6_INSTANCES = ("mma_sync", "wgmma")
+_K6_SMEM_TWO_BLOCKS = 113 * 1024
+
+
+def conv3d_tapconcat_persample_plan(x_shape, co: int, *, num_sms: Optional[int] = None,
+                                    device=None) -> dict:
+    """The launch K6 makes for x (N,D,H,W,4) and Co output channels, on a
+    card of ``num_sms`` SMs (given, else the CUDA ``device``'s, else 132).
+    The kernel source's ``plan_launch``, in Python.
+
+    instance "wgmma" (Co a multiple of 32, W even and >= 8, H*W >= 128
+    positions a plane: the s2d entry conv of the net): ``tile`` [rows, columns] of 128
+    output positions, [2, 64] for W in 64..127, [1, 128] for W >= 128,
+    [16, 8] (8x8 patches) below 64; ``bn`` the Co tile, 128, 64 or 32 (the
+    narrowest that covers Co up to 128), ``co_tiles`` of them; ``tiles``
+    over every (sample, Co tile), in (sample, Co tile, depth, row, column)
+    order; persistent ``blocks``: the SM count times ``blocks_per_sm``
+    (2 where a block's shared memory is at most 113 KB, else 1), at most
+    one a tile, block c taking tiles [c*tiles//blocks, (c+1)*tiles//blocks);
+    ``weight_loads``, the most (sample, Co tile) weight sets a block loads.
+    instance "mma_sync" (the rest; the first design): tiles of 128 positions
+    (a row segment where W >= 128, else whole rows), 4 a block, BN 128, one
+    block per 4 tiles of a sample and Co tile, one weight load each. Also:
+    dynamic shared bytes, grid and blocks. With a CUDA ``device`` (needs the
+    card) it also reads the compiled kernel's registers and local (spill)
+    bytes a thread, and checks that the kernel computes the same shared
+    memory and grid.
+    """
+    n, d, h, wl, _ = (int(v) for v in x_shape)
+    sms = _plan_sms(num_sms, device)
+    plan = dict(_k6_plan(n, d, h, wl, int(co), sms))
+    if device is not None and torch.device(device).type == "cuda":
+        plan.update(_compiled_plan("conv3d_tapconcat", plan, (
+            n, d, h, wl, int(co), -(-int(co) // 8) * 8, _K6_INSTANCES.index(plan["instance"]),
+            sms)))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _k6_plan(n, d, h, wl, co, num_sms) -> dict:
+    """``plan_launch``. Cached (the wrapper plans every call): callers copy
+    the dict, never change it."""
+    tw = 128 if wl >= 128 else (64 if wl >= 64 else 8)
+    rows = 128 // tw
+    per_key = d * -(-h // rows) * -(-wl // tw)  # tiles of one (sample, Co tile)
+    bn = 128 if co >= 128 else (64 if co >= 64 else 32)
+    co_tiles = -(-co // bn)
+    tiles = n * co_tiles * per_key
+    if co % 32 == 0 and wl >= 8 and wl % 2 == 0 and h * wl >= 128 and tiles < 2**31:
+        s2 = _round128(5 * (rows + 2) * (tw + 2) * 16)  # a paired slab
+        slab = _round128(5 * (rows + 2) * (tw + 4) * 8)  # a plain slab: columns w0-2..w0+tw+1
+        smem = _K1_SWIZZLE_ALIGN + 240 * bn * 2 + 2 * 128 * bn * 2 + 2 * s2 + 2 * slab
+        per_sm = 2 if smem <= _K6_SMEM_TWO_BLOCKS else 1
+        ctas = min(num_sms * per_sm, tiles)
+        loads = max(((c + 1) * tiles // ctas - 1) // per_key - c * tiles // ctas // per_key + 1
+                    for c in range(ctas))
+        return dict(instance="wgmma", tile=[rows, tw], bn=bn, co_tiles=co_tiles, tiles=tiles,
+                    blocks_per_sm=per_sm, weight_loads=loads, smem_bytes=smem, grid=[ctas, 1],
+                    blocks=ctas, num_sms=num_sms)
+    rows, tw = (1, 128) if wl >= 128 else (128 // wl, wl)
+    per_key = d * (h * -(-wl // 128) if wl >= 128 else -(-h // rows))
+    blocks_per_key = -(-per_key // 4)
+    co_tiles = -(-co // 128)
+    smem = 128 * 200 * 2 + 192 * 136 * 2 + 5 * (rows + 2) * (tw + 2) * 4 * 2
+    return dict(instance="mma_sync", tile=[rows, tw], bn=128, co_tiles=co_tiles,
+                tiles=n * co_tiles * per_key, blocks_per_sm=2, weight_loads=1, smem_bytes=smem,
+                grid=[n * blocks_per_key, co_tiles], blocks=n * blocks_per_key * co_tiles,
+                num_sms=num_sms)
 
 
 def conv3d_same_tapmajor(

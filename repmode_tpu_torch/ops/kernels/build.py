@@ -158,8 +158,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_dpad_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 14 + [ptr]
         lib.conv3d_dpad_bf16.restype = i32
     elif name == "conv3d_tapconcat":
-        lib.conv3d_tapconcat_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
+        lib.conv3d_tapconcat_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i32)]
+        lib.conv3d_tapconcat_plan.restype = i32
+        lib.conv3d_tapconcat_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
         lib.conv3d_tapconcat_bf16.restype = i32
+        lib.conv3d_tapconcat_wgmma_unit.argtypes = [ptr, ptr, ptr, i32, ptr]
+        lib.conv3d_tapconcat_wgmma_unit.restype = i32
     else:
         raise KeyError(f"no C interface declared for kernel {name!r}")
     err_fn = getattr(lib, f"{name}_error_string")

@@ -6,7 +6,9 @@ instance through forced plans), K2 and K3 (``conv3d_same_persample``, forward an
 wide instances, and each tile of its warpgroup-MMA instance, whose
 descriptors a one-block test holds first), K5 (``conv3d_dpad``: its plan, each tile of its
 warpgroup-MMA instance through forced plans, its halo rows) and K6
-(``conv3d_tapconcat_persample``), the training path through K2-K4 and, under
+(``conv3d_tapconcat_persample``: its plan, each tile of its persistent
+warpgroup-MMA instance, whose descriptors and weight map a one-block test
+holds first, and its mma.sync instance), the training path through K2-K4 and, under
 ``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
 space-to-depth serving routes through K1 and K5, and the space-to-depth
 training path through K6 and K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
@@ -47,6 +49,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_plan,
     conv3d_tapconcat_persample,
     conv3d_tapconcat_persample_plain,
+    conv3d_tapconcat_persample_plan,
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
@@ -902,13 +905,23 @@ def test_two_phase_equals_fused_on_the_card(cuda):
 
 # (N, D, H, W, Co): the full-width training shape (K6's main use), W below
 # the 128-position tile with H not a multiple of its rows, W above it with a
-# partial tile, Co below 8, Co above one 128-wide block
+# partial tile, Co below 8, Co above one 128-wide block; then the wgmma
+# instance's tiles: rows of 64 columns (H = 5: a partial last tile) and of
+# 128, 8x8 patches at W = 8 and 16 (H = 20: a partial band of 16 rows), Co
+# = 32, 64 and 256, and W = 100 and 200 (a partial column tile) with Co = 96
+# and 160 (a partial Co tile)
 K6_CASES = [
     (8, 32, 64, 64, 128),
     (2, 4, 8, 8, 8),
     (3, 5, 12, 20, 24),
     (1, 3, 2, 130, 4),
     (2, 6, 6, 16, 136),
+    (2, 3, 5, 64, 64),
+    (2, 3, 3, 128, 256),
+    (2, 4, 16, 8, 32),
+    (1, 3, 20, 16, 128),
+    (2, 2, 9, 100, 96),
+    (1, 2, 4, 200, 160),
 ]
 
 
@@ -927,6 +940,100 @@ def test_tapconcat_kernel_matches_plain(cuda, case):
     ref = conv3d_tapconcat_persample_plain(x[idx].double(), wn[idx].double())
     assert y.shape == (n, d, h, w, co) and y.dtype == bf
     assert within_tolerance(y[idx], ref), (y[idx].double() - ref).abs().max().item()
+
+
+def k6_operands(shape, cuda, seed=0):
+    n, d, h, w, co = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d, h, w, 4), generator=g).to(cuda, torch.bfloat16)
+    wn = (torch.randn((n, 180, co), generator=g) / 180 ** 0.5).to(cuda, torch.bfloat16)
+    return x, wn
+
+
+@pytest.mark.parametrize("tw", [64, 8])
+def test_tapconcat_wgmma_descriptors_one_k16_step(cuda, tw):
+    """One block, the k16 steps of groups (dz 0, dy 0..2), through the wgmma
+    instance's own descriptors and weight map against an fp64 matmul: A the
+    paired slab, K-major without swizzle, K 8-15 two entries (32 bytes)
+    after K 0-7; B the weights loaded in place through their 5-D map,
+    MN-major in the 128-byte swizzle, two atoms of 64 Co, tap dx 3
+    zero-filled by the map. A tile of 2 rows of 64 columns, and one of 16
+    rows of 8 (8x8 patches: core matrices a slab row apart)."""
+    rows, p2 = 128 // tw, tw + 2
+    rng = np.random.default_rng(tw)
+    bf = torch.bfloat16
+    s2 = torch.from_numpy(rng.standard_normal((rows + 2, p2, 8))).to(cuda, bf)
+    wn = torch.from_numpy(rng.standard_normal((1, 180, 128))).to(cuda, bf)
+    out = torch.full((3, 128, 128), float("nan"), device=cuda)
+    lib = build.load("conv3d_tapconcat")
+    err = lib.conv3d_tapconcat_wgmma_unit(s2.data_ptr(), wn.data_ptr(), out.data_ptr(), tw,
+                                          torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.conv3d_tapconcat_error_string(err).decode()
+    torch.cuda.synchronize()
+    s, w = s2.double(), wn[0].double()
+    q = torch.arange(128, device=cuda)
+    r, c = q // tw, q % tw
+    for dy in range(3):
+        a = torch.cat([s[r + dy, c], s[r + dy, c + 2]], dim=1)  # (position, K = 16)
+        b = torch.zeros((16, 128), dtype=torch.float64, device=cuda)
+        b[:12] = w[12 * dy:12 * dy + 12]  # group (0, dy): taps dx 0..2 x 4 lanes
+        ref = a @ b
+        assert within_tolerance(out[dy], ref), (dy, (out[dy].double() - ref).abs().max().item())
+
+
+def test_tapconcat_full_width_is_deterministic(cuda):
+    """The full-width shape on the wgmma instance: two calls give the same
+    bits."""
+    x, wn = k6_operands(K6_CASES[0], cuda)
+    assert conv3d_tapconcat_persample_plan(x.shape, 128)["instance"] == "wgmma"
+    assert torch.equal(conv3d_tapconcat_persample(x, wn), conv3d_tapconcat_persample(x, wn))
+
+
+def test_tapconcat_reads_each_samples_weights(cuda):
+    """Sample 1 is sample 0 with x and w each scaled by 4 (exact in bf16 and
+    fp32): its y is 16 times sample 0's, bit for bit; sample 2 is drawn
+    apart; all hold the plain version. Persistent blocks over 1, 2 and 5
+    SMs, whose tile ranges cross samples and reload the weights, give the
+    same bits as the card's own plan."""
+    n, d, h, w, co = 3, 4, 6, 64, 128
+    x0, w0 = k6_operands((1, d, h, w, co), cuda, seed=12)
+    x2, w2 = k6_operands((1, d, h, w, co), cuda, seed=13)
+    x, wn = torch.cat([x0, 4 * x0, x2]), torch.cat([w0, 4 * w0, w2])
+    plan = conv3d_tapconcat_persample_plan(x.shape, co, device=cuda)
+    assert plan["instance"] == "wgmma" and plan["local_bytes"] == 0, plan
+    y = conv3d_tapconcat_persample(x, wn)
+    torch.cuda.synchronize()
+    assert torch.equal(y[1], 16 * y[0])
+    assert within_tolerance(y, conv3d_tapconcat_persample_plain(x.double(), wn.double()))
+    for sms in (1, 2, 5):
+        p = conv3d_tapconcat_persample_plan(x.shape, co, num_sms=sms)
+        assert p["blocks"] == sms and p["weight_loads"] > 1, p
+        assert torch.equal(conv3d_mod._k6_launch(x, wn, co, p), y), sms
+
+
+@pytest.mark.parametrize("case", [(2, 4, 8, 64, 128), (2, 3, 16, 8, 64)])
+def test_tapconcat_instances_agree(cuda, case):
+    """The mma.sync instance, forced at shapes the wgmma one takes, holds
+    the plain version too."""
+    x, wn = k6_operands(case, cuda, seed=5)
+    plan = conv3d_tapconcat_persample_plan(x.shape, case[-1], device=cuda)
+    assert plan["instance"] == "wgmma", plan
+    y = conv3d_mod._k6_launch(x, wn, case[-1], dict(plan, instance="mma_sync"))
+    torch.cuda.synchronize()
+    assert within_tolerance(y, conv3d_tapconcat_persample_plain(x.double(), wn.double()))
+
+
+def test_every_k6_case_plans_without_spills(cuda):
+    """The full-width shape plans the wgmma instance (at most 2 weight loads
+    a block); every K6 case's plan holds the kernel's own shared memory and
+    grid, and the wgmma instance compiles without spills (the mma.sync
+    kernel spills 24 bytes a thread, as it did)."""
+    plan = conv3d_tapconcat_persample_plan(K6_CASES[0][:4] + (4,), 128, device=cuda)
+    assert plan["instance"] == "wgmma" and plan["weight_loads"] <= 2, plan
+    for n, d, h, w, co in K6_CASES:
+        plan = conv3d_tapconcat_persample_plan((n, d, h, w, 4), co, device=cuda)
+        assert plan["registers"] > 0, plan
+        assert plan["instance"] == "mma_sync" or plan["local_bytes"] == 0, plan
 
 
 def test_tapconcat_kernel_refuses_what_it_does_not_take(cuda):
