@@ -45,6 +45,18 @@ kernels):
                 one without, from the same weights and batch (equal
                 gradients, K2 twice as often under remat, peak memory of
                 both);
+  ingest        the real data path: per-task train/val/test CSVs in the
+                reference's schema (one unlabeled test row) and two-channel
+                uint16 CZI files (one LZW-compressed), written here; cli.train
+                at full width from them (host ingest with the native LZW
+                decoder, --path_save_dataset, one epoch, val, the test TIFFs:
+                K2-K4 launches per step and K1's in val/test read from this
+                run); the saved manifests reload; the TIFFs carry the JAX
+                package's names and equal a fresh predictor call; metrics.jsonl;
+                cli.evaluate on the saved dataset gives the same test MSE; the
+                ingest seconds (decode, LZW, normalize, resize) and the host
+                sampler's share of a cli.train step (native batcher and numpy,
+                against the step on a batch already on the card);
   s2d_kernel    K5 (the depth-padded conv chain of the space-to-depth serving
                 levels) at each of its conv shapes at batch 8, held against
                 its plain version in fp64 with exact-zero halo rows, timed
@@ -83,24 +95,35 @@ the repmode_tpu_torch package is not beside it. The last line is
 """
 
 import argparse
+import csv
 import json
 import logging
+import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repmode_tpu_torch import native
 from repmode_tpu_torch.cli import evaluate
 from repmode_tpu_torch.cli import train as train_cli
+from repmode_tpu_torch.compat.weights import load_reference_checkpoint
 from repmode_tpu_torch.config import (
     DEFAULT_DATASETS, Config, DataConfig, EvalConfig, ModelConfig, TrainConfig)
+from repmode_tpu_torch.data import ingest as ingest_mod
+from repmode_tpu_torch.data.czi import CziFile
+from repmode_tpu_torch.data.sampler import PatchSampler
+from repmode_tpu_torch.data.store import VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models import reparam
@@ -124,9 +147,10 @@ from repmode_tpu_torch.ops.conv3d import (
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
-from repmode_tpu_torch.train.loop import run_eval_pass, run_experiment
+from repmode_tpu_torch.train.loop import run_eval_pass, run_experiment, run_train_epoch
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
+from repmode_tpu_torch.utils import tiff
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -1516,6 +1540,367 @@ def train_s2d_check_phase(num_tasks):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- ingest
+
+INGEST_TASKS = ("dna", "lamin_b1")
+INGEST_RAW = (32, 344, 344)  # 32x128x128 after the 0.37241 XY resize: one patch
+INGEST_LZW_IMAGE = 2  # the LZW-compressed CZI
+# split -> task -> [(image, channel_target or None)]: 8 train rows (one batch
+# of 8), 2 val, 3 test of which one unlabeled; the images are shared between
+# the tasks as the reference's dna task shares the other tasks' images
+INGEST_LAYOUT = {
+    "train": {"dna": [(0, 1), (1, 1), (2, 1), (3, 1)], "lamin_b1": [(2, 1), (3, 1), (4, 1), (5, 1)]},
+    "val": {"dna": [(4, 1)], "lamin_b1": [(0, 1)]},
+    "test": {"dna": [(5, 1), (1, None)], "lamin_b1": [(1, 1)]},
+}
+INGEST_CSV_COLUMNS = ("path_czi", "channel_signal", "channel_target", "structureProteinName",
+                      "colony_position")
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF-variant LZW (MSB-first codes, 9->12 bits, early change, a clear
+    before the table fills): the stream tests/lzw_ref.py:tiff_lzw_encode
+    writes, byte for byte, with codes packed into an integer instead of a
+    list of bits, which is too slow for a 32x344x344 channel."""
+    table = {}
+    next_code, bits = 258, 9
+    out = bytearray()
+    acc, nacc = 256, 9  # the leading clear code
+    w = -1
+    for ch in data:
+        if w < 0:
+            w = ch
+            continue
+        c = table.get((w << 8) | ch)
+        if c is not None:
+            w = c
+            continue
+        acc, nacc = (acc << bits) | w, nacc + bits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+        table[(w << 8) | ch] = next_code
+        next_code += 1
+        if next_code == (1 << bits) and bits < 12:
+            bits += 1
+        if next_code >= 4094:
+            acc, nacc = (acc << bits) | 256, nacc + bits
+            table.clear()
+            next_code, bits = 258, 9
+        w = ch
+    for code in ([w] if w >= 0 else []) + [257]:
+        acc, nacc = (acc << bits) | code, nacc + bits
+    while nacc >= 8:
+        nacc -= 8
+        out.append((acc >> nacc) & 0xFF)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _czi_segment(sid: bytes, payload: bytes) -> bytes:
+    alloc = (len(payload) + 31) // 32 * 32
+    return struct.pack("<16sqq", sid, alloc, len(payload)) + payload + b"\0" * (alloc - len(payload))
+
+
+def write_czi(path, data, compression=0):
+    """A ZISRAW file of (C, Z, Y, X) uint16 data, one subblock a channel, in
+    the layout of tests/test_czi.py:write_czi (header, metadata, subblocks,
+    directory; dimension entries X first); compression 2 stores each
+    subblock TIFF-LZW-compressed."""
+    c, z, y, x = data.shape
+    xml = (b'<ImageDocument><Metadata><Scaling><Items><Distance Id="X"><Value>1.08e-07'
+           b"</Value></Distance></Items></Scaling></Metadata></ImageDocument>")
+    meta = _czi_segment(b"ZISRAWMETADATA", struct.pack("<ii", len(xml), 0) + b"\0" * 248 + xml)
+    pos = 32 + 512 + len(meta)
+    entries, subblocks = [], []
+    for ci in range(c):
+        dims = [(b"X", 0, x), (b"Y", 0, y), (b"Z", 0, z), (b"C", ci, 1)]
+        entry = (b"DV" + struct.pack("<iqii", 1, pos, 0, compression) + b"\0" * 6
+                 + struct.pack("<i", len(dims))
+                 + b"".join(struct.pack("<4siifi", n, s, k, 0.0, k) for n, s, k in dims))
+        raw = np.ascontiguousarray(data[ci], "<u2").tobytes()
+        if compression == 2:
+            raw = lzw_encode(raw)
+        inline = struct.pack("<iiq", 0, 0, len(raw)) + entry
+        inline += b"\0" * (max(256, len(entry) + 16) - len(inline))
+        subblocks.append(_czi_segment(b"ZISRAWSUBBLOCK", inline + raw))
+        entries.append(entry)
+        pos += len(subblocks[-1])
+    directory = _czi_segment(b"ZISRAWDIRECTORY",
+                             struct.pack("<i", c) + b"\0" * 124 + b"".join(entries))
+    hdr = (struct.pack("<iiii", 1, 0, 0, 0) + b"\0" * 32
+           + struct.pack("<iqqiq", 0, pos, 32 + 512, 0, 0))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<16sqq", b"ZISRAWFILE", 512, 512) + hdr + b"\0" * (512 - len(hdr)))
+        f.write(meta)
+        for seg in subblocks:
+            f.write(seg)
+        f.write(directory)
+
+
+def write_ingest_dataset(root):
+    """The reference's layout under root: csvs/<task>/<split>.csv (its schema;
+    an empty channel_target for the unlabeled row) and czi/<image>.czi, the
+    CSVs' paths 'data'-prefixed (the reference strips the prefix). Returns
+    {image: raw (C, Z, Y, X) uint16}."""
+    rng = np.random.default_rng(SEED + 40)
+    zz, yy, xx = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in INGEST_RAW), indexing="ij")
+    os.makedirs(os.path.join(root, "czi"))
+    images = sorted({k for tasks in INGEST_LAYOUT.values() for rows in tasks.values()
+                     for k, _ in rows})
+    raws = {}
+    for k in images:
+        # cell-like blobs and a depth ramp under shot noise: brightfield-ish
+        # signal, a fluorescence-ish target that depends on it
+        blob = np.sin(xx / (9.0 + k)) * np.cos(yy / (7.0 + k)) + zz / INGEST_RAW[0]
+        sig = 1000 + 300 * blob + rng.normal(0, 30, blob.shape)
+        tgt = 400 + 250 * np.maximum(blob, 0) ** 2 + rng.normal(0, 20, blob.shape)
+        raws[k] = np.stack([sig, tgt]).clip(0, 65535).astype(np.uint16)
+        write_czi(os.path.join(root, "czi", f"cell_{k}.czi"), raws[k],
+                  compression=2 if k == INGEST_LZW_IMAGE else 0)
+    for split, tasks in INGEST_LAYOUT.items():
+        for ds, rows in tasks.items():
+            os.makedirs(os.path.join(root, "csvs", ds), exist_ok=True)
+            with open(os.path.join(root, "csvs", ds, f"{split}.csv"), "w", newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(INGEST_CSV_COLUMNS)
+                for k, t in rows:
+                    w.writerow([f"data/cell_{k}.czi", 0, "" if t is None else t, ds, ""])
+    return raws
+
+
+class PhaseClock:
+    """Seconds spent inside wrapped functions, summed over calls and threads."""
+
+    def __init__(self):
+        self.seconds, self.calls = {}, {}
+        self._lock = threading.Lock()
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                    self.calls[name] = self.calls.get(name, 0) + 1
+        return timed
+
+
+def sampler_share(cfg, train_store, epochs=2):
+    """A cli.train step with the host sampler in it (run_train_epoch: the
+    sampler's prefetch thread, the host-to-device copy, the step) against
+    the step on a batch already on the card, with the native batcher and
+    with use_native=False; in turns fixed, native, numpy, numpy, native,
+    fixed after one warm-up epoch. The train store's 8 volumes four times
+    over give 4 batches of 8 an epoch. Also the host-only assembly time of
+    one batch and its host-to-device copy."""
+    store = VolumeStore(train_store.records * 4, train_store.adopted_datasets)
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 41), "cuda")
+    step = make_train_step(cfg, state)
+    samplers = {name: PatchSampler(store, cfg.train.batch_size, cfg.train.patch_size,
+                                   seed=SEED + 42, use_native=name == "native")
+                for name in ("native", "numpy")}
+    steps = samplers["native"].batches_per_epoch()
+    host = next(samplers["numpy"].epoch())
+    fixed = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    run_train_epoch(cfg, state, step, samplers["native"], 0)  # warm-up
+    ms = {"fixed": [], "native": [], "numpy": []}
+    for name in ("fixed", "native", "numpy", "numpy", "native", "fixed"):
+        for _ in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "fixed":
+                pending = [step(fixed) for _ in range(steps)]
+                float(pending[-1]["loss"])
+                torch.cuda.synchronize()
+            else:
+                run_train_epoch(cfg, state, step, samplers[name], 0)
+            ms[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    assembly = {}
+    for name, s in samplers.items():
+        idx = np.arange(cfg.train.batch_size)
+        s._make_batch(idx)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s._make_batch(idx)
+        assembly[name] = (time.perf_counter() - t0) * 1e3 / 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3 / 5
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"steps_per_epoch": steps, "batch": cfg.train.batch_size,
+            "step_ms_median": med, "step_ms_all": ms,
+            "sampler_share_native": (med["native"] - med["fixed"]) / med["native"],
+            "sampler_share_numpy": (med["numpy"] - med["fixed"]) / med["numpy"],
+            "batch_assembly_ms": assembly, "host_to_device_copy_ms": copy_ms}
+
+
+def ingest_phase(num_convs, card):
+    """The real data path on the card: CSVs and CZI files (one LZW) ->
+    cli.train at full width (ingest, --path_save_dataset, one epoch, val,
+    the best checkpoint, the test pass with --save_test_preds and
+    --save_test_signals_and_targets) -> cli.evaluate on the saved dataset
+    and the best checkpoint. Returns the launch counts of the cli.train
+    run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        raws = write_ingest_dataset(tmp)
+        write_s = time.perf_counter() - t0
+        with CziFile(os.path.join(tmp, "czi", f"cell_{INGEST_LZW_IMAGE}.czi")) as czi:
+            check([e.compression for e in czi.entries] == [2, 2], "ingest: no LZW subblocks")
+            check(np.array_equal(czi.asarray()[..., 0], raws[INGEST_LZW_IMAGE]),
+                  "ingest: the LZW CZI does not read back as written")
+
+        saved, exp_dir = os.path.join(tmp, "saved"), os.path.join(tmp, "train")
+        argv = ["--adopted_datasets", *INGEST_TASKS, "--path_dataset_csv", os.path.join(tmp, "csvs"),
+                "--path_dataset_czi", os.path.join(tmp, "czi"), "--path_save_dataset", saved,
+                "--num_epochs", "1", "--interval_val", "1", "--save_test_preds",
+                "--save_test_signals_and_targets", "--debugging", "--path_exp_dir", exp_dir]
+        clock = PhaseClock()
+        with mock.patch.object(ingest_mod, "CziVolumeReader",
+                               clock.wrap("decode", ingest_mod.CziVolumeReader)), \
+                mock.patch.object(native, "lzw_decode", clock.wrap("lzw", native.lzw_decode)), \
+                mock.patch.object(ingest_mod, "normalize",
+                                  clock.wrap("normalize", ingest_mod.normalize)), \
+                mock.patch.object(ingest_mod, "resize", clock.wrap("resize", ingest_mod.resize)), \
+                mock.patch.object(train_cli, "ingest_split",
+                                  clock.wrap("ingest_wall", train_cli.ingest_split)), \
+                mock.patch.object(VolumeStore, "save", clock.wrap("save", VolumeStore.save)):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = train_cli.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = kernel_counts()
+        rows = sum(len(r) for tasks in INGEST_LAYOUT.values() for r in tasks.values())
+        emit({"phase": "ingest_time", "card": card, "rows": rows,
+              "images": len(raws), "raw_shape": list(INGEST_RAW), "lzw_images": 1,
+              "workers": train_cli.build_parser().get_default("num_workers"),
+              "ingest_wall_s": clock.seconds["ingest_wall"],
+              "thread_s": {k: clock.seconds[k] for k in ("decode", "lzw", "normalize", "resize")},
+              "calls": clock.calls, "save_s": clock.seconds["save"],
+              "write_dataset_s": write_s, "cli_train_s": train_s,
+              "note": "thread_s sums the worker threads' time inside each function (decode "
+                      "includes lzw); ingest_wall_s is the three splits' ingest_split calls"})
+        check(clock.calls["lzw"] == 2 * sum(k == INGEST_LZW_IMAGE for tasks in
+                                            INGEST_LAYOUT.values() for r in tasks.values()
+                                            for k, _ in r), "ingest: LZW decode calls")
+
+        # ---- the main path's launches: one step (8 train rows, batch 8),
+        # K1 in val and test (one batch of 8 patches a volume)
+        steps = res["state"].step
+        k1_expected = (2 + 3) * num_convs
+        out = {"phase": "ingest_train", "card": card, "seconds": train_s, "steps": steps,
+               "launches": counts,
+               "launches_per_step": {k: counts[k] / max(steps, 1) for k in
+                                     ("conv3d_same_persample", "conv3d_same_persample_transpose",
+                                      "conv3d_dw_persample")},
+               "k1_launches_val_test": counts["conv3d_same"], "k1_expected": k1_expected,
+               "train_loss": res["train_log"]["loss/epoch"],
+               "test_mse": res["test_log"]["metric_test/MSE"],
+               "best_path": os.path.basename(res["best_path"] or "")}
+        emit(out)
+        check(steps == 1, f"ingest: {steps} steps, expected 1")
+        for k, v in zip(out["launches_per_step"], (num_convs, num_convs - 1, num_convs)):
+            check(counts[k] == v * steps, f"ingest: {k} launched {counts[k]} times, expected {v}")
+        check(counts["conv3d_same"] == k1_expected, "ingest: K1 launches outside val/test")
+        check(np.isfinite(out["train_loss"]) and np.isfinite(out["test_mse"]),
+              "ingest: non-finite loss or test MSE")
+        check(res["best_path"] is not None, "ingest: no best checkpoint")
+
+        # ---- the manifests reload
+        stores = {s: VolumeStore.load(saved, s) for s in INGEST_LAYOUT}
+        for split, tasks in INGEST_LAYOUT.items():
+            want = [(ds, f"data/cell_{k}.czi") for ds in sorted(tasks) for k, _ in tasks[ds]]
+            got = [(r.dataset, r.info["path_czi"]) for r in stores[split].records]
+            check(got == want, f"ingest: {split} manifest holds {got}")
+            for r in stores[split].records:
+                check(r.signal.shape == PATCH and np.isfinite(r.signal).all(),
+                      f"ingest: {split} signal {r.signal.shape}")
+        unlabeled = stores["test"].records[1]
+        check(unlabeled.target is None and math.isnan(unlabeled.info["channel_target"]),
+              "ingest: the unlabeled row has a target")
+
+        # ---- the TIFFs: JAX's names; the predictions equal a fresh predictor
+        # call (K1 is bit-identical across calls); signal and target as stored
+        cfg = train_cli.to_config(train_cli.build_parser().parse_args(argv))
+        loaded = load_reference_checkpoint(res["best_path"])
+        net = RepModeNet(cfg.model, cfg.num_tasks, compute_dtype=cfg.train.compute_dtype,
+                         device="cuda")
+        net.load_state_dict(loaded["state_dict"], strict=True)
+        prepare, _ = reparam.make_inference(cfg)
+        predictor = TiledPredictor(cfg)
+        preds_dir = os.path.join(exp_dir, "preds")
+        names, max_diff = [], 0.0
+        with torch.no_grad():
+            for i, rec in enumerate(stores["test"].records):
+                img_id = os.path.basename(rec.info["path_czi"]).rstrip(".czi")
+                base = os.path.join(preds_dir, f"{i:0>3d}_{{}}_{rec.dataset}_{img_id}.tiff")
+                fresh = predictor(prepare(net.state_dict(), rec.task), rec.signal).cpu().numpy()
+                saved_pred = tiff.imread(base.format("pred"))
+                max_diff = max(max_diff, float(np.abs(saved_pred - fresh).max()))
+                check(np.array_equal(saved_pred, fresh), f"ingest: {base.format('pred')} differs "
+                                                         "from a fresh predictor call")
+                check(np.array_equal(tiff.imread(base.format("signal")), rec.signal),
+                      "ingest: signal TIFF")
+                if rec.target is not None:
+                    check(np.array_equal(tiff.imread(base.format("target")), rec.target),
+                          "ingest: target TIFF")
+                names += [os.path.basename(base.format(k)) for k in ("pred", "signal", "target")
+                          if k != "target" or rec.target is not None]
+        check(sorted(os.listdir(preds_dir)) == sorted(names), "ingest: unexpected TIFFs")
+
+        # ---- the run record
+        with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        check(len(lines) == 2 and "loss/epoch" in lines[0] and "metric_val/MSE" in lines[1],
+              "ingest: metrics.jsonl lacks the epoch and val lines")
+
+        # ---- cli.evaluate on the saved dataset and the best checkpoint
+        t0 = time.perf_counter()
+        log = evaluate.main(["--torch_checkpoint", res["best_path"], "--path_load_dataset", saved,
+                             "--debugging", "--path_exp_dir", os.path.join(tmp, "eval")])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        emit({"phase": "ingest_outputs", "card": card, "tiffs": sorted(names),
+              "pred_max_abs_diff_vs_fresh_call": max_diff,
+              "metrics_jsonl_lines": [sorted(x)[:4] for x in lines],
+              "evaluate_seconds": eval_s, "evaluate_test_mse": log["metric_test/MSE"],
+              "train_test_mse": out["test_mse"],
+              "equal": log["metric_test/MSE"] == out["test_mse"]})
+        check(log["metric_test/MSE"] == out["test_mse"],
+              "ingest: cli.evaluate's test MSE differs from the train run's test pass")
+        del net, predictor
+        torch.cuda.empty_cache()
+
+        # ---- the host sampler's share of a cli.train step (ROADMAP A8b)
+        share = sampler_share(cfg, stores["train"])
+        emit({"phase": "ingest_sampler", "card": card, **share,
+              "phase_seconds": time.perf_counter() - t_phase})
+        check(all(np.isfinite(v) for v in share["step_ms_median"].values()),
+              "ingest: sampler timing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def card_name_and_limit():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
@@ -1532,6 +1917,7 @@ def main(argv=None):
     cfg_s2d = ModelConfig()  # the same net in the s2d layout, the default
     convs = serving_convs(cfg, PATCH, batch=8)
     check(len(convs) == 19, f"expected 19 convs, got {len(convs)}")
+    card = card_name_and_limit()
     build_phase()
     if only:
         phases = {"kernel": lambda: kernel_phase(convs),
@@ -1542,6 +1928,7 @@ def main(argv=None):
                   "train_step": lambda: train_step_phase(convs, num_tasks=4),
                   "train_check": lambda: train_check_phase(num_tasks=4),
                   "train_faults": lambda: train_faults_phase(len(convs), num_tasks=4),
+                  "ingest": lambda: ingest_phase(len(convs), card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -1576,6 +1963,8 @@ def main(argv=None):
     train_check_phase(num_tasks=4)
     torch.cuda.empty_cache()
     train_faults_phase(len(convs), num_tasks=4)
+    torch.cuda.empty_cache()
+    ingest_phase(len(convs), card)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1613,11 +2002,7 @@ def main(argv=None):
               "tools/bench_enc1c1_kernel.py:85", s2d_train_counts["conv3d_tapconcat_persample"],
               k6_totals),
     ]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(card, flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

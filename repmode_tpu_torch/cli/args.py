@@ -75,7 +75,7 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--mult_chan", type=int, default=32)
     p.add_argument("--on_device_pipeline", choices=["auto", "on", "off"],
                    default="auto",
-                   help="device-resident patch pipeline: not ported (A8), 'on' "
+                   help="device-resident patch pipeline: not ported (A8b), 'on' "
                         "raises; auto and off run the host sampler (exact "
                         "reference batching incl. ragged tails)")
     p.add_argument("--train_impl", default="auto",

@@ -5,55 +5,35 @@
 
 Loads a reference ``.p`` checkpoint into ``RepModeNet`` (strict names),
 re-parameterizes it once per task and runs the tiled test pass through the
-plain net, writing the comp_/spec_/final_ metric CSVs. ``--device cpu`` runs
-on the CPU; without it and without a card the run raises.
+plain net, writing the comp_/spec_/final_ metric CSVs and, when asked, the
+test predictions as TIFFs. The datasets come as ``cli.train`` builds them
+(synthetic, saved manifests, else CZI ingest). ``--device cpu`` runs on the
+CPU; without it and without a card the run raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
+import json
 import time
 
 import torch
 
 from repmode_tpu_torch.cli.args import build_parser, to_config
+from repmode_tpu_torch.cli.train import build_stores
 from repmode_tpu_torch.compat.weights import load_reference_checkpoint
-from repmode_tpu_torch.data.store import VolumeStore
-from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.device import resolve_device
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models.repmode import RepModeNet
 from repmode_tpu_torch.train.loop import ExperimentDirs, run_eval_pass
 from repmode_tpu_torch.utils.logging import setup_logger
+from repmode_tpu_torch.utils.tracking import Tracker
 
 # flags of the JAX entry point whose features the port does not have yet
 _NOT_PORTED = {
     "path_load_model": "Orbax checkpoints (--path_load_model) are not ported yet; "
                        "pass a reference .p with --torch_checkpoint",
-    "save_test_preds": "TIFF saving (--save_test_preds) is not ported yet",
-    "save_test_signals_and_targets": "TIFF saving (--save_test_signals_and_targets) "
-                                     "is not ported yet",
-    "id": "the run tracker / wandb mirror (--id) is not ported yet",
 }
-
-
-def build_stores(cfg, logger, synthetic: bool = False):
-    """Test-split VolumeStore: synthetic, or a manifest written by ingest."""
-    if synthetic:
-        # seeds as the JAX entry point's train/val/test stores (seed + 2 = test)
-        store = synthetic_store(cfg.data.adopted_datasets, volumes_per_task=2,
-                                seed=cfg.train.seed + 2)
-        logger.info(f"[DATASET] Synthetic test: {len(store)} volumes")
-        return {"test": store}
-    if not cfg.data.path_load_dataset:
-        raise NotImplementedError(
-            "CZI ingest is not ported yet: pass --path_load_dataset (an ingested "
-            "dataset) or --synthetic"
-        )
-    store = VolumeStore.load(cfg.data.path_load_dataset, "test", cfg.data.adopted_datasets)
-    logger.info(f"[DATASET] test loaded from {cfg.data.path_load_dataset}: {len(store)} volumes")
-    return {"test": store}
 
 
 def main(argv=None):
@@ -81,8 +61,8 @@ def main(argv=None):
     logger = setup_logger(dirs.logs, cfg.exp_name)
     logger.info("[CONFIG]  eval.s2d=False: the native route; the space-to-depth route "
                 "does 1.44x its arithmetic on this card")
-    with open(os.path.join(dirs.logs, "config_evaluate.json"), "w") as f:
-        f.write(cfg.to_json())
+    tracker = Tracker(dirs.logs, run_name=cfg.run_name, config=json.loads(cfg.to_json()),
+                      offline=cfg.debugging, run_id=ns.id, entry_point="evaluate")
 
     net = RepModeNet(cfg.model, cfg.num_tasks, compute_dtype=cfg.train.compute_dtype,
                      device=device)
@@ -93,9 +73,13 @@ def main(argv=None):
     stores = build_stores(cfg, logger, synthetic=ns.synthetic)
     predictor = TiledPredictor(cfg, device=device)
     with torch.no_grad():
-        test_log, agg = run_eval_pass(cfg, net.state_dict(), stores["test"], predictor, "test")
+        test_log, agg = run_eval_pass(cfg, net.state_dict(), stores["test"], predictor, "test",
+                                      pred_dir=dirs.preds)
     logger.info("[TEST]    Test | MSE: {:.6f}".format(test_log["metric_test/MSE"]))
     agg.to_csvs(dirs.metrics, cfg.exp_name)
+    for k, v in test_log.items():
+        tracker.set_summary(k, v)
+    tracker.finish()
     logger.info("[TIME]    Elapsed time: {:.1f} s".format(time.time() - t0))
     return test_log
 

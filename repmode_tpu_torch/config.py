@@ -124,6 +124,9 @@ class Config:
     def num_tasks(self) -> int:
         return len(self.data.adopted_datasets)
 
+    def task_index(self, dataset_name: str) -> int:
+        return self.data.adopted_datasets.index(dataset_name)
+
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 

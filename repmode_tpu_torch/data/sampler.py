@@ -1,13 +1,17 @@
 """Host-side patch sampling with background prefetch.
 
-The port's copy of the numpy path of ``repmode_tpu.data.sampler``
-(reference DataLoader pipeline, fnet/functions.py:45-58, and the augmentation
-of SSPdataset.data_aug:137-155): per epoch every volume is visited once in a
+The port's copy of ``repmode_tpu.data.sampler`` (reference DataLoader
+pipeline, fnet/functions.py:45-58, and the augmentation of
+SSPdataset.data_aug:137-155): per epoch every volume is visited once in a
 shuffled order, one random crop plus independent per-axis random flips
-(p=0.5) per visit, batches of ``batch_size`` with the ragged tail kept. The
-RNG protocol is the JAX package's, so the same seed gives the same batches
-as its ``PatchSampler(use_native=False)``. The C++ batcher is not ported
-(A8).
+(p=0.5) per visit, batches of ``batch_size`` with the ragged tail kept.
+
+A batch is assembled by the native C++ batcher (``native.crop_flip_batch``,
+the default, as in JAX) or by numpy (``use_native=False``). Both take the
+crops and flips of one RNG draw (``draw_crop_flip``, every sample of a batch
+first), so the batches are bit-equal whichever path runs, and equal to the
+JAX package's ``PatchSampler`` for the same seed. Where the JAX sampler falls
+back to numpy when the library cannot be built, this one raises.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class PatchSampler:
         flip_prob: float = 0.5,
         shuffle: bool = True,
         prefetch: int = 2,
+        use_native: bool = True,
     ):
         self.store = store
         self.batch_size = batch_size
@@ -60,22 +65,40 @@ class PatchSampler:
         self.shuffle = shuffle
         self.prefetch = prefetch
         self.rng = np.random.default_rng(seed)
+        self._native = None
+        if use_native:
+            from repmode_tpu_torch import native
+
+            native.lib()  # build now: a failed build raises here, not in the prefetch thread
+            self._native = native
 
     def batches_per_epoch(self) -> int:
         return -(-len(self.store) // self.batch_size)
 
     def _make_batch(self, idxs) -> Dict[str, np.ndarray]:
         records = [self.store[i] for i in idxs]
-        sigs, tgts = [], []
-        for r in records:
-            starts, flips = draw_crop_flip(r.signal.shape, self.patch_size, self.rng,
-                                           self.flip_prob)
-            sigs.append(apply_crop_flip(r.signal, starts, flips, self.patch_size))
-            tgts.append(apply_crop_flip(r.target, starts, flips, self.patch_size))
+        tasks = np.asarray([r.task for r in records], np.int32)
+
+        # one RNG draw protocol for both paths
+        starts = np.empty((len(records), 3), np.int64)
+        flips = np.empty((len(records), 3), np.uint8)
+        for i, r in enumerate(records):
+            starts[i], flips[i] = draw_crop_flip(r.signal.shape, self.patch_size, self.rng,
+                                                 self.flip_prob)
+
+        if self._native is not None:
+            sig, tgt = self._native.crop_flip_batch(
+                [(r.signal, r.target) for r in records], starts, flips, self.patch_size)
+            return {"signal": sig[..., None], "target": tgt[..., None], "task": tasks}
+
+        sigs = [apply_crop_flip(r.signal, starts[i], flips[i], self.patch_size)
+                for i, r in enumerate(records)]
+        tgts = [apply_crop_flip(r.target, starts[i], flips[i], self.patch_size)
+                for i, r in enumerate(records)]
         return {
             "signal": np.stack(sigs)[..., None].astype(np.float32),
             "target": np.stack(tgts)[..., None].astype(np.float32),
-            "task": np.asarray([r.task for r in records], np.int32),
+            "task": tasks,
         }
 
     def epoch(self) -> Iterator[Dict[str, np.ndarray]]:

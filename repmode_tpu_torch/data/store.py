@@ -2,7 +2,7 @@
 
 Every volume of every task is held in host RAM as float32 numpy, as the
 reference does (fnet/data/SSPdataset.py:32-87). On disk a split is npz shards
-plus a JSON manifest, the format the JAX package's ingest writes.
+plus a JSON manifest (``save``, ``load``), the JAX package's format.
 
 Task id convention matches the reference: index into the *sorted* adopted
 dataset tuple (SSPdataset.py:127, main.py:117).
@@ -38,6 +38,15 @@ class VolumeStore:
     def __getitem__(self, i: int) -> VolumeRecord:
         return self.records[i]
 
+    def get_information(self, i: int) -> Dict:
+        return self.records[i].info
+
+    def filter_datasets(self, names: Sequence[str]) -> "VolumeStore":
+        """Single/multi-task filtering (reference fliter_one_cat_data,
+        SSPdataset.py:102-114, used for Multi-Net baselines)."""
+        keep = set(names)
+        return VolumeStore([r for r in self.records if r.dataset in keep], self.adopted_datasets)
+
     @classmethod
     def load(cls, path: str, split: str, adopted_datasets: Optional[Sequence[str]] = None) -> "VolumeStore":
         """Load `<path>/<split>.manifest.json` + npz shards written by ingest."""
@@ -65,3 +74,19 @@ class VolumeStore:
                 )
             )
         return cls(records, datasets)
+
+    def save(self, path: str, split: str) -> None:
+        """Write `<path>/<split>_<i>.npz` shards and `<path>/<split>.manifest.json`
+        (the JAX package's format: either package loads the other's)."""
+        os.makedirs(path, exist_ok=True)
+        volumes = []
+        for i, r in enumerate(self.records):
+            fname = f"{split}_{i:05d}.npz"
+            arrays = {"signal": r.signal}
+            if r.target is not None:
+                arrays["target"] = r.target
+            np.savez_compressed(os.path.join(path, fname), **arrays)
+            volumes.append({"file": fname, "dataset": r.dataset, "info": r.info})
+        manifest = {"adopted_datasets": list(self.adopted_datasets), "volumes": volumes}
+        with open(os.path.join(path, f"{split}.manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)

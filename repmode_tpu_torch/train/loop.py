@@ -10,11 +10,17 @@ The port of ``repmode_tpu.train.loop`` on one card with the host sampler
   * eval predicts full volumes one at a time with the tiled predictor
     through the re-parameterized net (built once per task for the pass) and
     aggregates per-volume MSE/MAE/R^2 per dataset;
-  * after training the best checkpoint is reloaded and tested, and the
-    comp_/spec_/final_ CSVs are written.
+  * after training the best checkpoint is reloaded and tested, the
+    comp_/spec_/final_ CSVs are written, and under ``save_test_preds`` /
+    ``save_test_signals_and_targets`` each test volume's prediction (and its
+    signal and target) is saved as a float32 TIFF under the JAX package's
+    names;
+  * the run record (``utils/tracking.Tracker``): every epoch's and val
+    pass's log dict in ``metrics.jsonl``, the test metrics and the best
+    checkpoint as summaries, at the JAX package's points.
 
-Not ported: the on-device patch pipeline (A8), data parallelism (A10), the
-run tracker and profiler hooks (A12); each raises where it is asked for.
+Not ported: the on-device patch pipeline (A8b), data parallelism (A10) and
+the profiler hook (A12a); the first two raise where they are asked for.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from repmode_tpu_torch.metrics.metrics import metric_stats
 from repmode_tpu_torch.models.reparam import StateDict, make_inference
 from repmode_tpu_torch.train.state import TrainState, create_train_state, param_count
 from repmode_tpu_torch.train.step import make_train_step
+from repmode_tpu_torch.utils import tiff
+from repmode_tpu_torch.utils.tracking import Tracker
 
 
 class ExperimentDirs:
@@ -61,8 +69,13 @@ def run_eval_pass(
     predictor: TiledPredictor,
     eval_type: str,
     epoch: Optional[int] = None,
+    pred_dir: Optional[str] = None,
 ) -> tuple:
-    """Full-volume eval of a reference-layout state_dict over a store.
+    """Full-volume eval of a reference-layout state_dict over a store. A test
+    pass with ``pred_dir`` saves the TIFFs its config asks for. A volume
+    without a target (an empty ``channel_target``) is predicted and saved but
+    left out of the metrics, where the JAX package scores it NaN and fails to
+    save its target.
 
     Returns (log_dict, aggregator).
     """
@@ -75,10 +88,28 @@ def run_eval_pass(
         if rec.task not in plain_cache:
             plain_cache[rec.task] = prepare(state, rec.task)
         pred = predictor(plain_cache[rec.task], rec.signal).cpu().numpy()
-        agg.add(rec.dataset, rec.info.get("path_czi", str(i)), metric_stats(pred, rec.target))
+        if rec.target is not None:  # an unlabeled volume is predicted, not scored
+            agg.add(rec.dataset, rec.info.get("path_czi", str(i)), metric_stats(pred, rec.target))
+        if eval_type == "test" and pred_dir is not None:
+            if cfg.eval.save_test_preds:
+                _save_volume(pred_dir, i, "pred", rec, pred)
+            if cfg.eval.save_test_signals_and_targets:
+                _save_volume(pred_dir, i, "signal", rec, rec.signal)
+                if rec.target is not None:
+                    _save_volume(pred_dir, i, "target", rec, rec.target)
     log = agg.log_dict(eval_type, epoch if eval_type == "val" else None)
     log[f"time/{eval_type}"] = time.perf_counter() - t0
     return log, agg
+
+
+def _save_volume(pred_dir: str, idx: int, kind: str, rec, arr: np.ndarray) -> None:
+    """Save one volume as a multi-page float32 TIFF (reference format,
+    main.py:288-297) named ``<idx>_<kind>_<dataset>_<image id>.tiff``."""
+    # rstrip strips characters, not the suffix: kept as the JAX package has
+    # it, so both packages write the same names
+    img_id = os.path.basename(rec.info.get("path_czi", f"{idx}")).rstrip(".czi")
+    base = os.path.join(pred_dir, f"{idx:0>3d}_{kind}_{rec.dataset}_{img_id}")
+    tiff.imwrite(base + ".tiff", np.asarray(arr, np.float32))
 
 
 def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampler,
@@ -119,8 +150,10 @@ def run_experiment(
     stores: Dict[str, VolumeStore],
     logger: Optional[logging.Logger] = None,
     device: DeviceLike = "cuda",
+    tracker: Optional[Tracker] = None,
 ) -> Dict:
     """Full train + val + test experiment (reference main.main, main.py:21-234).
+    Without a ``tracker`` an offline one writes ``<logs>/metrics.jsonl``.
 
     Returns {'state', 'best_path', 'train_log' (the last epoch's, when one
     ran), 'test_log' (when there is a test store)}.
@@ -130,9 +163,10 @@ def run_experiment(
     if cfg.train.num_devices != 1:
         raise NotImplementedError("data-parallel training (num_devices > 1) is not ported (A10)")
     if cfg.train.on_device_pipeline:
-        raise NotImplementedError("the on-device patch pipeline is not ported (A8); "
+        raise NotImplementedError("the on-device patch pipeline is not ported (A8b); "
                                   "the host sampler runs when on_device_pipeline is auto/off")
     dirs = ExperimentDirs(cfg)
+    tracker = tracker or Tracker(dirs.logs, offline=True)
     with open(os.path.join(dirs.logs, f"train_options_{cfg.exp_name}.json"), "w") as f:
         f.write(cfg.to_json())
 
@@ -162,26 +196,36 @@ def run_experiment(
         logger.info("[TRAIN]   NO.{} epoch training | loss: {:.6f}".format(
             epoch + 1, log["loss/epoch"]))
         logger.debug(f"[TRAIN]   {log}")
+        tracker.log(log)
         if (epoch + 1) % cfg.train.interval_val == 0 and "val" in stores:
             with torch.no_grad():
                 val_log, _ = run_eval_pass(cfg, state.net.state_dict(), stores["val"],
                                            predictor, "val", epoch)
             logger.info("[VAL]     NO.{} epoch validation | MSE: {:.6f}".format(
                 epoch + 1, val_log["metric_val/MSE"]))
-            for p in policy.on_validation(epoch, val_log["metric_val/MSE"], state):
+            tracker.log(val_log)
+            saved = policy.on_validation(epoch, val_log["metric_val/MSE"], state)
+            for p in saved:
                 logger.info(f"[MODEL]   Checkpoint saved to: {p}")
+            if policy.best_path in saved:
+                tracker.set_summary("metric_val/MSE_best@epoch", epoch + 1)
+                tracker.set_summary("metric_val/MSE_best", policy.best_metric)
 
     # reload best + final test (main.py:209-225)
     if policy.best_path is not None:
         load_train_state(policy.best_path, state)
         logger.info(f"[ACTION]  Evaluate model: {policy.best_path}")
+        tracker.set_summary("path_eval_model", policy.best_path)
     results.update(state=state, best_path=policy.best_path)
     if "test" in stores:
         with torch.no_grad():
             test_log, agg = run_eval_pass(cfg, state.net.state_dict(), stores["test"],
-                                          predictor, "test")
+                                          predictor, "test", pred_dir=dirs.preds)
         logger.info("[TEST]    Test | MSE: {:.6f}".format(test_log["metric_test/MSE"]))
         agg.to_csvs(dirs.metrics, cfg.exp_name)
+        for k, v in test_log.items():
+            tracker.set_summary(k, v)
         results["test_log"] = test_log
+    tracker.finish()
     logger.info("[ACTION]  Experiment ends.")
     return results

@@ -4,7 +4,8 @@ The port of ``repmode_tpu/train/step.py:make_train_step``: MSE meaned over
 all elements, backward, one Adam step, BN running stats updated by the
 train-mode forward. Per-task losses are segment sums over the task axis
 computed on the device; the step returns device tensors and never syncs the
-host, which reads them once per epoch.
+host, which reads them once per epoch. ``make_eval_loss_step`` is the
+eval-mode forward and its MSE, with no update.
 """
 
 from __future__ import annotations
@@ -56,5 +57,19 @@ def make_train_step(cfg: Config, state: TrainState) -> Callable[[Batch], Dict[st
                 metrics["param_norm"] = _global_norm(params)
         state.step += 1
         return metrics
+
+    return step
+
+
+def make_eval_loss_step(cfg: Config) -> Callable[[TrainState, Batch], torch.Tensor]:
+    """step(state, batch) -> the MSE of the eval-mode forward (running BN
+    stats, no parameter update), a 0-d tensor on the net's device. The net is
+    left in eval mode; the train step sets train mode again."""
+
+    def step(state: TrainState, batch: Batch) -> torch.Tensor:
+        state.net.eval()
+        with torch.no_grad():
+            out = state.net(batch["signal"], batch["task"])
+            return torch.mean((out - batch["target"]) ** 2)
 
     return step

@@ -230,8 +230,8 @@ def test_metrics_and_csvs_match_jax(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter imports every port module and gains no jax module
-    and nothing of repmode_tpu."""
+    """A fresh interpreter imports every port module and gains no jax module,
+    nothing of repmode_tpu and no pandas (the card's machine has none)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -239,7 +239,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'repmode_tpu'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'repmode_tpu',\n"
+        "                                                  'pandas'))\n"
         "assert len(names) >= 20, names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -251,7 +252,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    """No source file of the port imports jax, flax or repmode_tpu, even lazily."""
+    """No source file of the port imports jax, flax, repmode_tpu or pandas, even
+    lazily; ``native/`` is scanned with the rest, and its C++ source is there."""
     import ast
 
     root = os.path.join(REPO, "repmode_tpu_torch")
@@ -269,8 +271,10 @@ def test_port_sources_name_no_jax_import():
                 else:
                     continue
                 bad += [(path, m) for m in mods
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "repmode_tpu")]
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "repmode_tpu", "pandas")]
     assert not bad, bad
+    assert os.path.isfile(os.path.join(root, "native", "__init__.py"))
+    assert os.path.isfile(os.path.join(root, "native", "patchops.cpp"))
 
 
 @pytest.mark.parametrize("ci,taps", [(1, (5, 5, 5)), (3, (3, 5, 3)), (5, (1, 1, 1)), (9, (3, 3, 3))])

@@ -299,9 +299,12 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--on_device_pipeline", "on"], "A8"),
     (["--num_devices", "2"], "A10"),
-    (["--save_test_preds"], "TIFF"),
+    (["--path_load_model", "{orbax_dir}", "--mult_chan", "2"], "Orbax"),
 ])
 def test_train_cli_refuses_unported_flags(argv, match, tmp_path):
+    orbax_dir = tmp_path / "orbax_ckpt"
+    orbax_dir.mkdir()
+    argv = [a.format(orbax_dir=orbax_dir) for a in argv]
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(["--synthetic", "--device", "cpu", "--path_exp_dir", str(tmp_path / "e"),
                         *argv])
