@@ -56,7 +56,25 @@ kernels):
                 cli.evaluate on the saved dataset gives the same test MSE; the
                 ingest seconds (decode, LZW, normalize, resize) and the host
                 sampler's share of a cli.train step (native batcher and numpy,
-                against the step on a batch already on the card);
+                against the step on a batch already on the card); its
+                cli.train holds the host sampler (--on_device_pipeline off);
+  unet          the UNet baseline (cli --nn_module UNet) at full width: its
+                train step (time, peak memory, device profile, the same step
+                under cuDNN's autotuner; no port kernel launched; every
+                parameter gets a finite gradient and changes), cli.train for
+                2 epochs then cli.evaluate on its .p (the same test MSE; K1
+                only in val/test), the tiled predictor on a 32x256x256
+                volume (Mvox/s, K1 19 launches a batch, held against the same
+                net through conv3d_same_autograd);
+  bank          the device bank under on_device_pipeline auto: run_experiment
+                with the native net from a ragged train store of 24 volumes
+                (mostly 32x624x924, 3.54 GB padded, under the 4 GiB budget):
+                the bank is chosen and logged, K2-K4 19/18/19 a step, the
+                run's batches repeat bit for bit from a fresh sampler, a check
+                bank with NaN padding shows every crop inside its volume and
+                each volume visited once an epoch; its build seconds; the
+                step with the bank, with the host sampler and on a batch
+                already on the card, in turns;
   s2d_kernel    K5 (the depth-padded conv chain of the space-to-depth serving
                 levels) at each of its conv shapes at batch 8, held against
                 its plain version in fp64 with exact-zero halo rows, timed
@@ -122,11 +140,13 @@ from repmode_tpu_torch.config import (
     DEFAULT_DATASETS, Config, DataConfig, EvalConfig, ModelConfig, TrainConfig)
 from repmode_tpu_torch.data import ingest as ingest_mod
 from repmode_tpu_torch.data.czi import CziFile
+from repmode_tpu_torch.data.device_sampler import DeviceVolumeBank, make_device_sampler
 from repmode_tpu_torch.data.sampler import PatchSampler
-from repmode_tpu_torch.data.store import VolumeStore
+from repmode_tpu_torch.data.store import VolumeRecord, VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
-from repmode_tpu_torch.models import reparam
+from repmode_tpu_torch.models import build_model, reparam
+from repmode_tpu_torch.models import unet as unet_mod
 from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
 from repmode_tpu_torch.ops.conv3d import (
     conv3d_dpad,
@@ -147,7 +167,9 @@ from repmode_tpu_torch.ops.conv3d import (
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
-from repmode_tpu_torch.train.loop import run_eval_pass, run_experiment, run_train_epoch
+from repmode_tpu_torch.train import loop as loop_mod
+from repmode_tpu_torch.train.loop import (
+    run_eval_pass, run_experiment, run_train_epoch, run_train_epoch_device)
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
 from repmode_tpu_torch.utils import tiff
@@ -493,7 +515,7 @@ def serve_phase(cfg, num_convs):
         exp_dir = os.path.join(tmp, "serve")
         conv3d_same.launches = 0
         t1 = time.perf_counter()
-        log = evaluate.main(["--torch_checkpoint", ckpt, "--synthetic",
+        log = evaluate.main(["--torch_checkpoint", ckpt, "--synthetic", "--debugging",
                              "--adopted_datasets", *tasks, "--path_exp_dir", exp_dir])
         torch.cuda.synchronize()
         main_launches = conv3d_same.launches
@@ -777,8 +799,9 @@ def train_phase(num_convs, tasks=DEFAULT_DATASETS[:4], epochs=3, impl="auto", ph
     per_step = ((num_convs, num_convs - 1, num_convs) if impl != "expert_sum" else (0, 0, 0))
     try:
         exp_dir = os.path.join(tmp, "train")
-        argv = ["--synthetic", "--adopted_datasets", *tasks, "--num_epochs", str(epochs),
-                "--interval_val", str(epochs), "--path_exp_dir", exp_dir, "--train_impl", impl]
+        argv = ["--synthetic", "--debugging", "--adopted_datasets", *tasks,
+                "--num_epochs", str(epochs), "--interval_val", str(epochs),
+                "--path_exp_dir", exp_dir, "--train_impl", impl]
         reset_counts()
         t0 = time.perf_counter()
         res = train_cli.main(argv)
@@ -1690,26 +1713,35 @@ class PhaseClock:
         return timed
 
 
-def sampler_share(cfg, train_store, epochs=2):
+def sampler_share(cfg, train_store, epochs=2, repeat=4, bank=None):
     """A cli.train step with the host sampler in it (run_train_epoch: the
     sampler's prefetch thread, the host-to-device copy, the step) against
     the step on a batch already on the card, with the native batcher and
     with use_native=False; in turns fixed, native, numpy, numpy, native,
-    fixed after one warm-up epoch. The train store's 8 volumes four times
-    over give 4 batches of 8 an epoch. Also the host-only assembly time of
-    one batch and its host-to-device copy."""
-    store = VolumeStore(train_store.records * 4, train_store.adopted_datasets)
+    fixed after one warm-up epoch. The train store's volumes ``repeat``
+    times over make an epoch (the ingest phase's 8 volumes four times over:
+    4 batches of 8). With ``bank``, a device bank of the store, the device
+    sampler (run_train_epoch_device) takes numpy's turns. Also the host-only
+    assembly time of one batch and its host-to-device copy."""
+    store = VolumeStore(train_store.records * repeat, train_store.adopted_datasets)
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 41), "cuda")
     step = make_train_step(cfg, state)
+    names = ("native", "numpy") if bank is None else ("native",)
     samplers = {name: PatchSampler(store, cfg.train.batch_size, cfg.train.patch_size,
                                    seed=SEED + 42, use_native=name == "native")
-                for name in ("native", "numpy")}
+                for name in names}
     steps = samplers["native"].batches_per_epoch()
-    host = next(samplers["numpy"].epoch())
+    host = next(samplers[names[-1]].epoch())
     fixed = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    other = "numpy"
+    if bank is not None:
+        other = "bank"
+        sample, bank_steps = make_device_sampler(bank, cfg.train.batch_size,
+                                                 cfg.train.patch_size, seed=SEED + 43)
+        check(bank_steps == steps, "sampler_share: the bank's steps differ from the host's")
     run_train_epoch(cfg, state, step, samplers["native"], 0)  # warm-up
-    ms = {"fixed": [], "native": [], "numpy": []}
-    for name in ("fixed", "native", "numpy", "numpy", "native", "fixed"):
+    ms = {"fixed": [], "native": [], other: []}
+    for name in ("fixed", "native", other, other, "native", "fixed"):
         for _ in range(epochs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1717,6 +1749,8 @@ def sampler_share(cfg, train_store, epochs=2):
                 pending = [step(fixed) for _ in range(steps)]
                 float(pending[-1]["loss"])
                 torch.cuda.synchronize()
+            elif name == "bank":
+                run_train_epoch_device(cfg, state, step, sample, steps, 0)
             else:
                 run_train_epoch(cfg, state, step, samplers[name], 0)
             ms[name].append((time.perf_counter() - t0) * 1e3 / steps)
@@ -1735,10 +1769,11 @@ def sampler_share(cfg, train_store, epochs=2):
     torch.cuda.synchronize()
     copy_ms = (time.perf_counter() - t0) * 1e3 / 5
     med = {k: float(np.median(v)) for k, v in ms.items()}
+    del state, step
+    torch.cuda.empty_cache()
     return {"steps_per_epoch": steps, "batch": cfg.train.batch_size,
             "step_ms_median": med, "step_ms_all": ms,
-            "sampler_share_native": (med["native"] - med["fixed"]) / med["native"],
-            "sampler_share_numpy": (med["numpy"] - med["fixed"]) / med["numpy"],
+            **{f"sampler_share_{k}": (med[k] - med["fixed"]) / med[k] for k in ("native", other)},
             "batch_assembly_ms": assembly, "host_to_device_copy_ms": copy_ms}
 
 
@@ -1764,7 +1799,8 @@ def ingest_phase(num_convs, card):
         argv = ["--adopted_datasets", *INGEST_TASKS, "--path_dataset_csv", os.path.join(tmp, "csvs"),
                 "--path_dataset_czi", os.path.join(tmp, "czi"), "--path_save_dataset", saved,
                 "--num_epochs", "1", "--interval_val", "1", "--save_test_preds",
-                "--save_test_signals_and_targets", "--debugging", "--path_exp_dir", exp_dir]
+                "--save_test_signals_and_targets", "--debugging", "--on_device_pipeline", "off",
+                "--path_exp_dir", exp_dir]
         clock = PhaseClock()
         with mock.patch.object(ingest_mod, "CziVolumeReader",
                                clock.wrap("decode", ingest_mod.CziVolumeReader)), \
@@ -1893,6 +1929,323 @@ def ingest_phase(num_convs, card):
     return counts
 
 
+# --------------------------------------------------- the UNet baseline (A9)
+
+UNET_TASKS = DEFAULT_DATASETS[:4]
+
+
+def seeded_unet(cfg, seed):
+    """A full-width UNet from a seeded generator, in eval mode, with BN
+    running statistics drawn as seeded_net draws them (activations stay
+    alive through its 19 convs)."""
+    gen = torch.Generator().manual_seed(seed)
+    net = build_model(cfg, gen, "cuda")
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_((torch.rand(buf.shape, generator=gen) - 0.5) * 0.1)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.3 + 0.3)
+    return net.eval()
+
+
+def unet_phase(num_convs, card):
+    """The UNet baseline at full width (mult_chan 32, depth 4, 5^3 kernels,
+    bf16 compute, batch 8 of 32x128x128): its train step (no port kernel
+    launches; cuDNN convs), cli.train --nn_module UNet then cli.evaluate on
+    its .p (the same test MSE), and the tiled predictor on a 32x256x256
+    volume (K1 at all 19 'same' convs of a batch, held against the same
+    net's conv3d_same_autograd forward)."""
+    t_phase = time.perf_counter()
+    cfg = Config(model=ModelConfig(name="UNet"), data=DataConfig(adopted_datasets=UNET_TASKS))
+
+    # ---- the train step
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 80), "cuda")
+    init = {k: v.detach().clone() for k, v in state.net.named_parameters()}
+    step = make_train_step(cfg, state)
+    batch = full_width_batch(len(UNET_TASKS), seed=SEED + 81)
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+
+    def step_ms():
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = sorted(step_ms() for _ in range(6))
+    counts = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof, _ = device_breakdown(lambda: step(batch), top=8)
+    # the same step with cuDNN's autotuner on (not the port's setting; the
+    # first step under it tunes every conv and is dropped)
+    torch.backends.cudnn.benchmark = True
+    try:
+        step_ms()
+        bench = sorted(step_ms() for _ in range(6))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    params = dict(state.net.named_parameters())
+    report = {"params_without_grad": [k for k, v in params.items() if v.grad is None],
+              "params_nonfinite_grad": [k for k, v in params.items() if v.grad is not None
+                                        and not bool(torch.isfinite(v.grad).all())],
+              "params_unchanged": [k for k, v in params.items() if torch.equal(v, init[k])]}
+    emit({"phase": "unet_step", "card": card, "batch": 8, "patch": list(PATCH),
+          "params": sum(v.numel() for v in params.values()),
+          "step_ms_median": times[len(times) // 2], "step_ms_all": times,
+          "step_ms_median_cudnn_benchmark": bench[len(bench) // 2],
+          "step_ms_all_cudnn_benchmark": bench,
+          "peak_memory_gb": peak_gb, "launches_in_6_steps": counts, **prof, **report})
+    check(all(v == 0 for v in counts.values()), "unet: a port kernel launched in a train step")
+    check_params("unet", report)
+    del state, step, init, params, batch
+    torch.cuda.empty_cache()
+
+    # ---- cli.train --nn_module UNet, then cli.evaluate on its .p
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_unet_")
+    try:
+        exp_dir = os.path.join(tmp, "train")
+        common = ["--synthetic", "--debugging", "--nn_module", "UNet",
+                  "--adopted_datasets", *UNET_TASKS]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main([*common, "--num_epochs", "2", "--interval_val", "2",
+                              "--path_exp_dir", exp_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = kernel_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        log = evaluate.main([*common, "--torch_checkpoint", res["best_path"],
+                             "--path_exp_dir", os.path.join(tmp, "eval")])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = kernel_counts()
+        # 2 synthetic volumes a task in val and in test, one batch of 8 each
+        k1_train = 2 * (2 * len(UNET_TASKS)) * num_convs
+        out = {"phase": "unet_cli", "card": card, "train_seconds": train_s,
+               "steps": res["state"].step, "train_launches": train_counts,
+               "k1_expected_val_test": k1_train, "evaluate_seconds": eval_s,
+               "evaluate_launches": eval_counts, "train_loss": res["train_log"]["loss/epoch"],
+               "train_test_mse": res["test_log"]["metric_test/MSE"],
+               "evaluate_test_mse": log["metric_test/MSE"],
+               "equal": log["metric_test/MSE"] == res["test_log"]["metric_test/MSE"]}
+        emit(out)
+        check(res["state"].step == 2, "unet: cli.train steps")
+        check(train_counts["conv3d_same"] == k1_train and sum(train_counts.values()) == k1_train,
+              "unet: cli.train launched a kernel other than K1, or K1 outside val/test")
+        check(eval_counts["conv3d_same"] == k1_train // 2, "unet: cli.evaluate K1 launches")
+        check(np.isfinite(out["train_loss"]) and out["equal"],
+              "unet: cli.evaluate's test MSE differs from the train run's test pass")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the predictor: K1 against the conv3d_same_autograd route
+    net = seeded_unet(cfg, SEED + 82)
+    prepare, _ = reparam.make_inference(cfg)
+    with torch.no_grad():
+        served = prepare(net.state_dict(), 0)
+    vol = torch.randn((32, 256, 256), generator=torch.Generator().manual_seed(SEED + 83))
+    pred = TiledPredictor(cfg)
+    pred(served, vol)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    y = pred(served, vol)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = conv3d_same.launches
+    serve_prof, _ = device_breakdown(lambda: pred(served, vol), top=8)
+
+    def autograd_conv(x, w, compute_dtype=None):
+        return conv3d_mod.conv3d_same_autograd(x, w, compute_dtype=compute_dtype).float()
+
+    with mock.patch.object(unet_mod, "conv3d_same", autograd_conv):
+        y_ref = TiledPredictor(cfg)(served, vol)
+    torch.cuda.synchronize()
+    rel = rel_l2(y, y_ref)
+    batches = pred.grid(tuple(vol.shape))[0].shape[0]
+    emit({"phase": "unet_predictor", "card": card, "volume": list(vol.shape),
+          "patches": pred.num_patches(vol.shape), "batches": batches, "seconds": secs,
+          "mvox_per_s": vol.numel() / secs / 1e6, "k1_launches": launches,
+          "k1_launches_per_batch": launches / batches, "rel_l2_vs_conv3d_same_autograd": rel,
+          "max_abs_ref": float(y_ref.abs().max()), "out_std": float(y.std()),
+          "tolerance": "rel L2 <= 1e-2 (K1's fp32 conv outputs against cuDNN's bf16 ones)",
+          "profile": serve_prof, "phase_seconds": time.perf_counter() - t_phase})
+    check(bool(torch.isfinite(y).all()) and y.shape == vol.shape and float(y.std()) > 0,
+          "unet: bad prediction")
+    check(launches == batches * num_convs, f"unet: K1 launched {launches} times in {batches} "
+                                           f"batches, expected {num_convs} a batch")
+    check(rel <= 1e-2, f"unet: K1 vs conv3d_same_autograd prediction rel L2 {rel}")
+    del net, served, pred
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ the device bank (A8b)
+
+# the corpus's size at the JAX bench's volume (BENCH_r05.json): most volumes
+# 32x624x924, a few smaller, so the bank is ragged; padded, 3.54 GB, just
+# under the default 4 GiB budget
+BANK_SHAPES = [(32, 624, 924)] * 20 + [(32, 400, 600), (32, 624, 700), (32, 512, 924),
+                                       (32, 300, 300)]
+
+
+def bank_store(seed):
+    """A train store of BANK_SHAPES from the seed, 4 tasks: signal uniform,
+    target an affine map of it (the sampler moves voxels, whatever they hold)."""
+    rng = np.random.default_rng(seed)
+    records = []
+    for i, shape in enumerate(BANK_SHAPES):
+        sig = rng.random(shape, dtype=np.float32)
+        tgt = sig * np.float32(0.5) + np.float32(0.1)
+        task = i % len(UNET_TASKS)
+        records.append(VolumeRecord(sig, tgt, UNET_TASKS[task], task,
+                                    {"path_czi": f"bank_{i}.czi"}))
+    return VolumeStore(records, UNET_TASKS)
+
+
+class LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def bank_phase(num_convs, card):
+    """The device bank under on_device_pipeline auto: run_experiment with the
+    native RepMode net for 2 epochs from a ragged train store of 24 volumes
+    (3.54 GB padded): the bank is chosen and logged, K2/K3/K4 launch
+    19/18/19 times a step, the batches the run drew repeat bit for bit from
+    a fresh sampler on its bank; a check bank of the same extents whose
+    padding is NaN and whose volumes hold their index shows every crop
+    inside its volume and each volume visited once an epoch; then the step
+    with the bank, with the host sampler and on a batch already on the card,
+    in turns (sampler_share)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    train = bank_store(SEED + 90)
+    make_s = time.perf_counter() - t0
+    small = synthetic_store(UNET_TASKS[:1], 1, seed=SEED + 91)  # one val and one test volume
+    cfg = Config(model=ModelConfig(train_s2d=False), data=DataConfig(adopted_datasets=UNET_TASKS),
+                 train=TrainConfig(num_epochs=2, interval_val=2), eval=EvalConfig(s2d=False))
+    nbytes = DeviceVolumeBank.padded_nbytes(train)
+    check(0 < nbytes <= cfg.train.device_bank_budget_bytes, "bank: the store overflows the budget")
+
+    built, drawn = [], []
+    from_store = DeviceVolumeBank.from_store
+
+    def timed_from_store(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bank = from_store(*args, **kwargs)
+        torch.cuda.synchronize()
+        built.append((bank, time.perf_counter() - t))
+        return bank
+
+    def recording_sampler(*args, **kwargs):
+        sample, steps = make_device_sampler(*args, **kwargs)
+
+        def recorded(epoch, step):
+            batch = sample(epoch, step)
+            drawn.append(((epoch, step), {k: v.clone() for k, v in batch.items()}))
+            return batch
+        return recorded, steps
+
+    logger = logging.getLogger("chip_smoke_bank")
+    logger.setLevel(logging.INFO)
+    lines = LogLines()
+    logger.addHandler(lines)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bank_")
+    try:
+        with mock.patch.object(loop_mod.DeviceVolumeBank, "from_store", timed_from_store), \
+                mock.patch.object(loop_mod, "make_device_sampler", recording_sampler):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run_experiment(cfg.replace(path_exp_dir=tmp, exp_name="bank"),
+                                 {"train": train, "val": small, "test": small},
+                                 logger=logger, device="cuda")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = kernel_counts()
+    finally:
+        logger.removeHandler(lines)
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = res["state"].step
+    bank, build_s = built[0]
+    per_step = {k: counts[k] / steps for k in ("conv3d_same_persample",
+                                               "conv3d_same_persample_transpose",
+                                               "conv3d_dw_persample")}
+    bank_lines = [x for x in lines.lines if "[DATA]" in x]
+    out = {"phase": "bank_run", "card": card, "volumes": len(BANK_SHAPES),
+           "bank_shape": list(bank.vol_shape), "bank_bytes": nbytes,
+           "bank_bytes_allocated": bank.signals.numel() * 4 * 2,
+           "budget_bytes": cfg.train.device_bank_budget_bytes, "store_make_seconds": make_s,
+           "bank_build_seconds": build_s, "run_seconds": run_s, "steps": steps,
+           "launches": counts, "launches_per_step": per_step, "log": bank_lines,
+           "train_loss": res["train_log"]["loss/epoch"],
+           "test_mse": res["test_log"]["metric_test/MSE"]}
+    emit(out)
+    check(len(built) == 1 and any("On-device pipeline: bank of 24 volumes" in x
+                                  for x in bank_lines), "bank: auto did not take the bank")
+    check(steps == 2 * 3 and len(drawn) == steps, f"bank: {steps} steps, expected 6")
+    for k, v in zip(per_step, (num_convs, num_convs - 1, num_convs)):
+        check(counts[k] == v * steps, f"bank: {k} launched {counts[k]} times in {steps} steps")
+    check(counts["conv3d_same"] == 2 * num_convs, "bank: K1 launches outside val/test")
+    check(np.isfinite(out["train_loss"]) and np.isfinite(out["test_mse"]), "bank: non-finite")
+
+    # ---- the run's batches from a fresh sampler on its bank, bit for bit
+    sample, _ = make_device_sampler(bank, cfg.train.batch_size, cfg.train.patch_size,
+                                    cfg.train.random_flip_prob, seed=cfg.train.seed + 1)
+    repeats = True
+    for at, batch in reversed(drawn):  # a resume may start anywhere
+        again = sample(*at)
+        repeats &= all(torch.equal(again[k], batch[k]) for k in batch)
+    del drawn
+
+    # ---- a check bank: the run's extents, volume i holds i + 1, NaN padding
+    v = bank.num_volumes
+    check_bank = DeviceVolumeBank(torch.full_like(bank.signals, float("nan")),
+                                  torch.full_like(bank.targets, float("nan")),
+                                  torch.arange(v, dtype=torch.int32, device="cuda"),
+                                  bank.extents.clone())
+    for i, (d, h, w) in enumerate(BANK_SHAPES):
+        check_bank.signals[i, :d, :h, :w] = i + 1
+        check_bank.targets[i, :d, :h, :w] = -(i + 1)
+    csample, csteps = make_device_sampler(check_bank, cfg.train.batch_size, cfg.train.patch_size,
+                                          cfg.train.random_flip_prob, seed=cfg.train.seed + 1)
+    visits, inside = [], True
+    for epoch in range(2):
+        seen = []
+        for s in range(csteps):
+            b = csample(epoch, s)
+            idx = b["task"].long() + 1
+            want = idx.float()[:, None, None, None, None]
+            inside &= bool((b["signal"] == want).all()) and bool((b["target"] == -want).all())
+            seen += b["task"].tolist()
+        visits.append(np.bincount(seen, minlength=v).tolist())
+    once = all(min(c) >= 1 and sum(c) == csteps * cfg.train.batch_size for c in visits)
+    emit({"phase": "bank_law", "card": card, "run_batches_repeat_bit_for_bit": repeats,
+          "crops_inside_extents_no_nan": inside, "visits_per_epoch": visits,
+          "each_volume_once_an_epoch": once})
+    check(repeats, "bank: a fresh sampler does not repeat the run's batches")
+    check(inside, "bank: a crop read padding or another volume")
+    check(once, "bank: an epoch missed a volume")
+    del check_bank, csample
+    torch.cuda.empty_cache()
+
+    # ---- the step: bank, host sampler (native batcher), batch already on the card
+    share = sampler_share(cfg, train, repeat=1, bank=bank)
+    emit({"phase": "bank_step", "card": card, **share,
+          "phase_seconds": time.perf_counter() - t_phase})
+    check(all(np.isfinite(x) for x in share["step_ms_median"].values()), "bank: step timing")
+    del bank, built, res
+    torch.cuda.empty_cache()
+
+
 def card_name_and_limit():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -1929,6 +2282,8 @@ def main(argv=None):
                   "train_check": lambda: train_check_phase(num_tasks=4),
                   "train_faults": lambda: train_faults_phase(len(convs), num_tasks=4),
                   "ingest": lambda: ingest_phase(len(convs), card),
+                  "unet": lambda: unet_phase(len(convs), card),
+                  "bank": lambda: bank_phase(len(convs), card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -1965,6 +2320,10 @@ def main(argv=None):
     train_faults_phase(len(convs), num_tasks=4)
     torch.cuda.empty_cache()
     ingest_phase(len(convs), card)
+    torch.cuda.empty_cache()
+    unet_phase(len(convs), card)
+    torch.cuda.empty_cache()
+    bank_phase(len(convs), card)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -10,8 +10,10 @@ with ``nn_state`` the reference-named ``state_dict`` and ``optimizer_state``
 ``torch.optim.Adam.state_dict()``. So a port checkpoint loads in
 ``cli.evaluate --torch_checkpoint`` and in the JAX package's
 ``load_torch_checkpoint``. Orbax directories are not read: the port cannot
-import JAX. The policy is the reference's: scheduled checkpoints plus a
-rolling best on validation MSE (main.py:183-198).
+import JAX; ``convert_orbax_checkpoint.py`` at the repo's root turns one into
+a ``.p`` where JAX and Orbax are installed. The policy is the reference's:
+scheduled checkpoints plus a rolling best on validation MSE
+(main.py:183-198).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import torch
 from repmode_tpu_torch.compat.weights import load_reference_checkpoint
 from repmode_tpu_torch.config import Config, expanded_checkpoint_epochs
 from repmode_tpu_torch.train.state import TrainState
+
+# the command that turns an Orbax checkpoint into a .p (run where JAX is installed)
+ORBAX_CONVERTER = "python convert_orbax_checkpoint.py <orbax checkpoint dir> <out.p>"
 
 
 def save_checkpoint(path: str, state: TrainState, cfg: Config) -> None:
@@ -50,8 +55,9 @@ def load_train_state(path: str, state: TrainState) -> TrainState:
     A directory (an Orbax checkpoint of the JAX package) raises."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is a directory (an Orbax checkpoint): Orbax is not ported (A7); "
-            "resume from a reference .p checkpoint"
+            f"{path} is a directory (an Orbax checkpoint of the JAX package), which the port "
+            f"does not read: convert it where JAX and Orbax are installed with "
+            f"'{ORBAX_CONVERTER}' and resume from the .p"
         )
     loaded = load_reference_checkpoint(path)
     state.net.load_state_dict(loaded["state_dict"], strict=True)

@@ -75,9 +75,10 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--mult_chan", type=int, default=32)
     p.add_argument("--on_device_pipeline", choices=["auto", "on", "off"],
                    default="auto",
-                   help="device-resident patch pipeline: not ported (A8b), 'on' "
-                        "raises; auto and off run the host sampler (exact "
-                        "reference batching incl. ragged tails)")
+                   help="patch pipeline: 'on' samples on the card from a bank of the "
+                        "train volumes in device memory, 'off' runs the host sampler "
+                        "(exact reference batching incl. ragged tails), 'auto' takes "
+                        "the bank when its padded size fits the 4 GiB budget")
     p.add_argument("--train_impl", default="auto",
                    choices=["auto", "expert_sum", "merged_pallas", "merged"],
                    help="MoDE conv route of training (ModelConfig.train_impl), the JAX "

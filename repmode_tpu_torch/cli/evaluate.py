@@ -3,10 +3,11 @@
     python -m repmode_tpu_torch.cli.evaluate --torch_checkpoint model_best.p \\
         --path_load_dataset data/all_data --path_exp_dir exps/torch_eval
 
-Loads a reference ``.p`` checkpoint into ``RepModeNet`` (strict names),
-re-parameterizes it once per task and runs the tiled test pass through the
-plain net, writing the comp_/spec_/final_ metric CSVs and, when asked, the
-test predictions as TIFFs. The datasets come as ``cli.train`` builds them
+Loads a reference ``.p`` checkpoint into the net of ``--nn_module``
+(``RepModeNet`` or ``UNet3D``, strict names), re-parameterizes a RepMode net
+once per task (a UNet serves as it is) and runs the tiled test pass,
+writing the comp_/spec_/final_ metric CSVs and, when asked, the test
+predictions as TIFFs. The datasets come as ``cli.train`` builds them
 (synthetic, saved manifests, else CZI ingest). ``--device cpu`` runs on the
 CPU; without it and without a card the run raises.
 """
@@ -21,18 +22,20 @@ import torch
 
 from repmode_tpu_torch.cli.args import build_parser, to_config
 from repmode_tpu_torch.cli.train import build_stores
+from repmode_tpu_torch.ckpt.checkpoint import ORBAX_CONVERTER
 from repmode_tpu_torch.compat.weights import load_reference_checkpoint
 from repmode_tpu_torch.device import resolve_device
 from repmode_tpu_torch.infer.predict import TiledPredictor
-from repmode_tpu_torch.models.repmode import RepModeNet
+from repmode_tpu_torch.models import build_model
 from repmode_tpu_torch.train.loop import ExperimentDirs, run_eval_pass
 from repmode_tpu_torch.utils.logging import setup_logger
 from repmode_tpu_torch.utils.tracking import Tracker
 
 # flags of the JAX entry point whose features the port does not have yet
 _NOT_PORTED = {
-    "path_load_model": "Orbax checkpoints (--path_load_model) are not ported yet; "
-                       "pass a reference .p with --torch_checkpoint",
+    "path_load_model": "the port reads no Orbax checkpoint (--path_load_model): convert it "
+                       f"where JAX and Orbax are installed with '{ORBAX_CONVERTER}' and "
+                       "pass the .p with --torch_checkpoint",
 }
 
 
@@ -64,8 +67,7 @@ def main(argv=None):
     tracker = Tracker(dirs.logs, run_name=cfg.run_name, config=json.loads(cfg.to_json()),
                       offline=cfg.debugging, run_id=ns.id, entry_point="evaluate")
 
-    net = RepModeNet(cfg.model, cfg.num_tasks, compute_dtype=cfg.train.compute_dtype,
-                     device=device)
+    net = build_model(cfg, device=device)
     net.load_state_dict(loaded["state_dict"], strict=True)
     net.eval()
     logger.info(f"[MODEL]   Imported torch checkpoint: {ns.torch_checkpoint}")

@@ -11,7 +11,10 @@
 Reads the datasets (synthetic; the manifests a previous run saved; else the
 per-task CSVs and their CZI files, ingested on the host and saved under
 ``--path_save_dataset``), trains the MoDE net (the per-sample merged kernels
-K2, K3 and K4 on the card), validates every ``--interval_val`` epochs through
+K2, K3 and K4 on the card) or, with ``--nn_module UNet``, the plain U-Net
+baseline (its convs through cuDNN), from patches drawn on the card out of a
+device bank of the train volumes or by the host sampler
+(``--on_device_pipeline``), validates every ``--interval_val`` epochs through
 the tiled predictor (kernel K1), keeps the best checkpoint as a reference
 ``.p``, reloads it, writes the test metric CSVs and, when asked, the test
 predictions as TIFFs. The run record goes to ``<exp>/logs`` (``metrics.jsonl``,
@@ -78,8 +81,9 @@ def snapshot_sources(cfg):
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(pkg, "data", "sampler.py"), os.path.join(pkg, "train", "step.py"),
              os.path.join(pkg, "config.py")]
-    if cfg.model.name == "RepMode":
-        files.insert(2, os.path.join(pkg, "models", "repmode.py"))
+    model_file = {"RepMode": "repmode.py", "UNet": "unet.py"}.get(cfg.model.name)
+    if model_file:
+        files.insert(2, os.path.join(pkg, "models", model_file))
     return files
 
 
@@ -88,9 +92,6 @@ def main(argv=None):
     ns = build_parser().parse_args(argv)
     if ns.num_devices != 1:
         raise NotImplementedError("data-parallel training (--num_devices > 1) is not ported (A10)")
-    if ns.on_device_pipeline == "on":
-        raise NotImplementedError("--on_device_pipeline on: the on-device patch pipeline is "
-                                  "not ported (A8b)")
     device = resolve_device(ns.device)
     cfg = to_config(ns)
 

@@ -1,4 +1,4 @@
-"""Carry RepMode weights between the reference layout and the JAX layout.
+"""Carry RepMode and UNet weights between the reference layout and the JAX layout.
 
 The port's modules use the reference's ``state_dict`` names and torch
 layouts, so a reference ``.p`` checkpoint loads as it is. ``from_jax_variables``
@@ -10,6 +10,10 @@ into such a ``state_dict``; it is the exact inverse of
   DHWIO (D,H,W,Ci,Co) of up_w  -> convT3d weight (Ci,Co,D,H,W)
   gate_kernel (In, Out)        -> Linear weight  (Out, In)
   bn/{scale,bias} + batch_stats/bn/{mean,var} -> BatchNorm3d entries
+
+A UNet tree (``unet_from_jax_variables``) maps the same way onto
+``models/unet.UNet3D``'s names: flax's ``BatchNorm3d_0`` of a ``ConvBNReLU``
+is its ``bn``; ``from_jax_variables`` dispatches on the tree.
 """
 
 from __future__ import annotations
@@ -73,10 +77,11 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     'params' key at the top, e.g. JAX gradients) maps to the parameter
     entries alone: no buffers.
     """
-    if "params" in variables:
-        params, stats = variables["params"], variables["batch_stats"]
-    else:
-        params, stats = variables, None
+    params, stats = _split(variables)
+    if not any(k in ("bottle_block", "conv_out") or k.startswith(("encoder_block",
+                                                                    "decoder_block"))
+               for k in params):
+        return unet_from_jax_variables(variables)
 
     def sub(tree, *keys):
         for k in keys:
@@ -105,6 +110,34 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             _mode_conv(out, top, p, s)
         else:
             raise KeyError(f"unexpected top-level module {top!r}")
+    return out
+
+
+def _split(variables: Mapping[str, Any]):
+    """(params, batch_stats or None) of a variables tree or a params-only tree."""
+    if "params" in variables:
+        return variables["params"], variables["batch_stats"]
+    return variables, None
+
+
+def unet_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX UNet3D ``{'params', 'batch_stats'}`` (numpy leaves) -> ``UNet3D``
+    state_dict; a params-only tree maps to the parameter entries alone."""
+    params, stats = _split(variables)
+    out: Dict[str, torch.Tensor] = {}
+    for top, p in params.items():
+        s = None if stats is None else stats.get(top)
+        if top.endswith(("_conv1", "_conv2")):
+            out[f"{top}.w"] = _conv_w(p["w"])
+            _bn(out, f"{top}.bn", p["BatchNorm3d_0"], None if s is None else s["BatchNorm3d_0"])
+        elif top.endswith("_bn"):
+            _bn(out, top, p, s)
+        elif top.startswith("up") and top.endswith("_w"):
+            out[top] = _convt_w(p)
+        elif top.startswith("down") or top == "out_w":
+            out[top] = _conv_w(p)
+        else:
+            raise KeyError(f"unexpected top-level UNet entry {top!r}")
     return out
 
 

@@ -400,6 +400,33 @@ def plain_forward_s2d_pallas(
     return conv3d_same(h, plain["conv_out_w"], compute_dtype=cdt)
 
 
+def _make_plain_inference(cfg) -> tuple:
+    """(prepare, forward) of a non-MoDE model (the UNet baseline), which has
+    nothing to merge: prepare loads the state into an eval-mode net of
+    ``cfg.model.name`` on the state's device, whatever the task; forward runs
+    it under ``torch.no_grad()``, so on the card every 'same' conv is K1.
+    The net is built once per device (its random init costs ~1 s at full
+    width) and every prepare call reloads it, so a net that prepare returned
+    holds the state of the latest call."""
+    from repmode_tpu_torch.models import build_model
+
+    nets: Dict[torch.device, torch.nn.Module] = {}
+
+    def prepare(state: StateDict, task_id: int) -> torch.nn.Module:
+        del task_id
+        dev = next(iter(state.values())).device
+        if dev not in nets:
+            nets[dev] = build_model(cfg, device=dev).eval()
+        nets[dev].load_state_dict(state, strict=True)
+        return nets[dev]
+
+    def forward(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return net(x)
+
+    return prepare, forward
+
+
 def make_inference(cfg) -> tuple:
     """(prepare, forward) for the top-level Config ``cfg``.
 
@@ -410,12 +437,11 @@ def make_inference(cfg) -> tuple:
     (``eval.s2d=True, eval.pallas_conv=True``). A model geometry that K5
     does not take (``pallas_geometry_ok``) logs a warning and takes the
     ``plain_forward_s2d`` route, as in the JAX package: a choice of route
-    made once here, not a fallback of the kernel.
+    made once here, not a fallback of the kernel. A model other than RepMode
+    (the UNet) serves its eval-mode net as it is (``_make_plain_inference``).
     """
     if cfg.model.name != "RepMode":
-        raise NotImplementedError(
-            f"model {cfg.model.name!r}: only RepMode is ported to repmode_tpu_torch yet"
-        )
+        return _make_plain_inference(cfg)
     if cfg.train.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
     cdt = _COMPUTE_DTYPES[cfg.train.compute_dtype]

@@ -1,12 +1,12 @@
 """Experiment orchestration: train -> periodic val -> best checkpoint -> test.
 
-The port of ``repmode_tpu.train.loop`` on one card with the host sampler
-(reference main.py:21-234, run_train:240-266, run_eval:269-326):
+The port of ``repmode_tpu.train.loop`` on one card (reference
+main.py:21-234, run_train:240-266, run_eval:269-326):
 
   * epochs from the state's epoch counter (resume), validation every
     ``interval_val`` epochs, scheduled + best-on-val-MSE ``.p`` checkpoints;
-  * one train step per host batch; per-task losses stay on the device and
-    are read once per epoch;
+  * one train step per batch of the device bank or the host sampler;
+    per-task losses stay on the device and are read once per epoch;
   * eval predicts full volumes one at a time with the tiled predictor
     through the re-parameterized net (built once per task for the pass) and
     aggregates per-volume MSE/MAE/R^2 per dataset;
@@ -19,8 +19,12 @@ The port of ``repmode_tpu.train.loop`` on one card with the host sampler
     pass's log dict in ``metrics.jsonl``, the test metrics and the best
     checkpoint as summaries, at the JAX package's points.
 
-Not ported: the on-device patch pipeline (A8b), data parallelism (A10) and
-the profiler hook (A12a); the first two raise where they are asked for.
+The patch pipeline is the JAX package's choice (``on_device_pipeline``):
+the device bank (``data/device_sampler``) when forced, or under auto when
+the padded bank fits ``device_bank_budget_bytes``; else the host sampler.
+
+Not ported: data parallelism (A10), which raises where it is asked for, and
+the profiler hook (A12a).
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repmode_tpu_torch.ckpt.checkpoint import CheckpointPolicy, load_train_state
 from repmode_tpu_torch.config import Config
+from repmode_tpu_torch.data.device_sampler import DeviceVolumeBank, make_device_sampler
 from repmode_tpu_torch.data.sampler import PatchSampler
 from repmode_tpu_torch.data.store import VolumeStore
 from repmode_tpu_torch.device import DeviceLike, resolve_device
@@ -114,13 +119,27 @@ def _save_volume(pred_dir: str, idx: int, kind: str, rec, arr: np.ndarray) -> No
 
 def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampler,
                     epoch: int) -> dict:
-    """One epoch; returns its log dict. The host reads the metrics once, at
-    the epoch's end."""
+    """One epoch from the host sampler; returns its log dict. The host reads
+    the metrics once, at the epoch's end."""
     t0 = time.perf_counter()
     device = next(state.net.parameters()).device
     pending = [step_fn({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
                for batch in sampler.epoch()]
+    return _epoch_log(cfg, state, pending, epoch, t0)
 
+
+def run_train_epoch_device(cfg: Config, state: TrainState, step_fn, sample_fn, steps: int,
+                           epoch: int) -> dict:
+    """One epoch from the device sampler: ``sample_fn(epoch, step)`` feeds the
+    step with no host work between steps (``data/device_sampler``)."""
+    t0 = time.perf_counter()
+    pending = [step_fn(sample_fn(epoch, s)) for s in range(steps)]
+    return _epoch_log(cfg, state, pending, epoch, t0)
+
+
+def _epoch_log(cfg: Config, state: TrainState, pending, epoch: int, t0: float) -> dict:
+    """The epoch's log dict from its steps' metrics (the single sync point);
+    counts the epoch."""
     num_tasks = cfg.num_tasks
     loss_sum = 0.0
     task_sums = np.zeros(num_tasks, np.float64)
@@ -145,6 +164,16 @@ def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampl
     return log
 
 
+def use_device_bank(cfg: Config, store: VolumeStore) -> Tuple[bool, int]:
+    """(whether to sample from a device bank, its padded bytes): as
+    ``on_device_pipeline`` says, or under auto (None) when the bank's padded
+    size fits ``device_bank_budget_bytes``, as in the JAX package."""
+    bank_bytes = DeviceVolumeBank.padded_nbytes(store)
+    if cfg.train.on_device_pipeline is not None:
+        return bool(cfg.train.on_device_pipeline), bank_bytes
+    return 0 < bank_bytes <= cfg.train.device_bank_budget_bytes, bank_bytes
+
+
 def run_experiment(
     cfg: Config,
     stores: Dict[str, VolumeStore],
@@ -162,9 +191,6 @@ def run_experiment(
     device = resolve_device(device)
     if cfg.train.num_devices != 1:
         raise NotImplementedError("data-parallel training (num_devices > 1) is not ported (A10)")
-    if cfg.train.on_device_pipeline:
-        raise NotImplementedError("the on-device patch pipeline is not ported (A8b); "
-                                  "the host sampler runs when on_device_pipeline is auto/off")
     dirs = ExperimentDirs(cfg)
     tracker = tracker or Tracker(dirs.logs, offline=True)
     with open(os.path.join(dirs.logs, f"train_options_{cfg.exp_name}.json"), "w") as f:
@@ -180,19 +206,38 @@ def run_experiment(
     logger.info(f"[MODEL]   Parameters: {param_count(state):,}")
 
     step_fn = make_train_step(cfg, state)
-    sampler = None
+    sampler = device_sample = None
     if "train" in stores and len(stores["train"]):
-        sampler = PatchSampler(stores["train"], cfg.train.batch_size, cfg.train.patch_size,
-                               seed=cfg.train.seed, flip_prob=cfg.train.random_flip_prob)
+        use_bank, bank_bytes = use_device_bank(cfg, stores["train"])
+        if cfg.train.on_device_pipeline is None and not use_bank:
+            logger.info(f"[DATA]    Device bank would need {bank_bytes / 1e9:.2f} "
+                        "GB > budget — using the host pipeline")
+        if use_bank:
+            bank = DeviceVolumeBank.from_store(stores["train"], device)
+            device_sample, steps_per_epoch = make_device_sampler(
+                bank, cfg.train.batch_size, cfg.train.patch_size, cfg.train.random_flip_prob,
+                seed=cfg.train.seed + 1)
+            logger.info(f"[DATA]    On-device pipeline: bank of {bank.num_volumes} volumes "
+                        f"padded to {bank.vol_shape} in device memory "
+                        "(once-per-volume permutation epochs)")
+        else:
+            sampler = PatchSampler(stores["train"], cfg.train.batch_size, cfg.train.patch_size,
+                                   seed=cfg.train.seed, flip_prob=cfg.train.random_flip_prob)
+            logger.info("[DATA]    Host pipeline: PatchSampler")
     predictor = TiledPredictor(cfg, device=device)
     policy = CheckpointPolicy(cfg, dirs.checkpoints)
     results: Dict = {}
 
     # epoch loop (main.py:156-199)
     for epoch in range(state.epoch, cfg.train.num_epochs):
-        if sampler is None:
+        if device_sample is not None:
+            log = run_train_epoch_device(cfg, state, step_fn, device_sample, steps_per_epoch,
+                                         epoch)
+        elif sampler is not None:
+            log = run_train_epoch(cfg, state, step_fn, sampler, epoch)
+        else:
             raise ValueError("no train volumes: the train store is missing or empty")
-        log = results["train_log"] = run_train_epoch(cfg, state, step_fn, sampler, epoch)
+        results["train_log"] = log
         logger.info("[TRAIN]   NO.{} epoch training | loss: {:.6f}".format(
             epoch + 1, log["loss/epoch"]))
         logger.debug(f"[TRAIN]   {log}")

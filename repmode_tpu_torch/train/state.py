@@ -17,12 +17,12 @@ import torch
 
 from repmode_tpu_torch.config import Config
 from repmode_tpu_torch.device import DeviceLike, resolve_device
-from repmode_tpu_torch.models.repmode import RepModeNet
+from repmode_tpu_torch.models import build_model
 
 
 @dataclasses.dataclass
 class TrainState:
-    net: RepModeNet
+    net: torch.nn.Module  # the registry's model (RepModeNet or UNet3D)
     optimizer: torch.optim.Adam
     step: int = 0   # iteration counter (count_iter, fnet_model.py:30)
     epoch: int = 0  # epoch counter (count_epoch, fnet_model.py:31)
@@ -37,14 +37,9 @@ def create_train_state(
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = "cuda",
 ) -> TrainState:
-    """A fresh net in training mode (weights drawn from ``generator``) and its
-    optimizer (reference _init_model, fnet_model.py:48-55)."""
-    if cfg.model.name != "RepMode":
-        raise NotImplementedError(
-            f"model {cfg.model.name!r}: only RepMode is ported to repmode_tpu_torch yet (A9)"
-        )
-    net = RepModeNet(cfg.model, cfg.num_tasks, compute_dtype=cfg.train.compute_dtype,
-                     generator=generator, device=resolve_device(device))
+    """A fresh net of ``cfg.model.name`` in training mode (weights drawn from
+    ``generator``) and its optimizer (reference _init_model, fnet_model.py:48-55)."""
+    net = build_model(cfg, generator, resolve_device(device))
     net.train()
     return TrainState(net=net, optimizer=make_optimizer(cfg, net))
 

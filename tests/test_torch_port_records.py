@@ -240,7 +240,7 @@ def czi_run(czi_dataset, tmp_path_factory):
             "--path_dataset_czi", str(czi_dataset / "czi"),
             "--path_save_dataset", str(out / "saved"), "--num_epochs", "1", "--interval_val", "1",
             "--save_test_preds", "--save_test_signals_and_targets", "--debugging",
-            "--path_exp_dir", str(out / "exp")]
+            "--on_device_pipeline", "off", "--path_exp_dir", str(out / "exp")]
     return out, train_cli.main(argv)
 
 

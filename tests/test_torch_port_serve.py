@@ -177,7 +177,7 @@ def test_evaluate_cli_requires_checkpoint(capsys):
 
 
 def test_evaluate_cli_orbax_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="--torch_checkpoint"):
+    with pytest.raises(NotImplementedError, match="convert_orbax_checkpoint.py.*--torch_checkpoint"):
         evaluate.main(["--path_load_model", str(tmp_path), "--device", "cpu"])
 
 

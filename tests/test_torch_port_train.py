@@ -264,16 +264,19 @@ def test_run_experiment_checkpoints_and_resumes(tmp_path):
 
 
 def test_run_experiment_refuses_unported_options(tmp_path):
+    """Data parallelism (A10) and an Orbax directory (which names the
+    converter) raise; the on-device pipeline, forced, trains."""
     cfg = tiny_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_experiment(dataclasses.replace(
-            cfg, train=dataclasses.replace(cfg.train, on_device_pipeline=True)), {}, device="cpu")
+    res = run_experiment(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, on_device_pipeline=True, num_epochs=1)),
+        tiny_stores(("dna",)), device="cpu")
+    assert res["state"].step == 1 and np.isfinite(res["train_log"]["loss/epoch"])
     with pytest.raises(NotImplementedError, match="A10"):
         run_experiment(dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, num_devices=2)), {}, device="cpu")
     orbax_dir = tmp_path / "orbax_ckpt"
     orbax_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(NotImplementedError, match="Orbax.*convert_orbax_checkpoint.py"):
         run_experiment(cfg.replace(path_load_model=str(orbax_dir)), tiny_stores(("dna",)),
                        device="cpu")
 
@@ -297,9 +300,8 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--on_device_pipeline", "on"], "A8"),
     (["--num_devices", "2"], "A10"),
-    (["--path_load_model", "{orbax_dir}", "--mult_chan", "2"], "Orbax"),
+    (["--path_load_model", "{orbax_dir}", "--mult_chan", "2"], "Orbax.*convert_orbax_checkpoint"),
 ])
 def test_train_cli_refuses_unported_flags(argv, match, tmp_path):
     orbax_dir = tmp_path / "orbax_ckpt"
@@ -309,3 +311,21 @@ def test_train_cli_refuses_unported_flags(argv, match, tmp_path):
         train_cli.main(["--synthetic", "--device", "cpu", "--path_exp_dir", str(tmp_path / "e"),
                         *argv])
 
+
+
+@pytest.mark.parametrize("flag,pipeline", [
+    ("on", "On-device pipeline: bank of 2 volumes"), ("off", "Host pipeline: PatchSampler"),
+    ("auto", "On-device pipeline: bank of 2 volumes"),
+])
+def test_train_cli_on_device_pipeline(flag, pipeline, tmp_path):
+    """--on_device_pipeline on / off / auto: the sampler the run log names
+    (auto takes the bank: 2 synthetic volumes fit the 4 GiB budget), one
+    step of 2, a finite loss."""
+    res = train_cli.main(["--synthetic", "--device", "cpu", "--mult_chan", "2",
+                          "--adopted_datasets", "dna", "--num_epochs", "1", "--interval_val", "2",
+                          "--batch_size", "2", "--batch_size_eval", "1", "--debugging",
+                          "--on_device_pipeline", flag, "--path_exp_dir", str(tmp_path / "e")])
+    log = (tmp_path / "e" / "logs" / "run_e.log").read_text()
+    assert f"[DATA]    {pipeline}" in log
+    assert ("On-device" in log) == (flag != "off") and ("Host pipeline" in log) == (flag == "off")
+    assert res["state"].step == 1 and np.isfinite(res["train_log"]["loss/epoch"])
