@@ -101,7 +101,20 @@ kernels):
   train_s2d_step  the s2d train step's time beside the native one's (one pair,
                 interleaved), its device profile and peak memory;
   train_s2d_check  one bf16 step of the s2d route against the native route on
-                the same weights and batch.
+                the same weights and batch;
+  dp            data parallelism: two gloo ranks (parallel.launch) share the
+                card. The full-width native step on each rank's 4 of the same
+                8 patches (sync-BN, gradients averaged) against the one-rank
+                step of 8, in fp32 (expert sum) and in bf16 (K2-K4 19/18/19 a
+                rank-step; hold_gradients), each limit scaled by the floor
+                of the one-rank step with the batch's halves swapped; both
+                ranks' parameters and BN stats bit-equal; its time beside
+                the one-rank step's, the gradient all-reduce's share and each
+                rank's peak memory (no scaling: the ranks share the SMs and
+                reduce through the host); run_experiment under two ranks (one
+                checkpoint, one metrics.jsonl, the sharded two_phase val
+                volume against fused, K1 19 a predictor batch on each rank);
+                cli.train --num_devices 2 on one card raises JAX's error.
 
 The phases before train_s2d_kernel build their nets with train_s2d=False:
 they hold the native layout, as they did before the s2d training path.
@@ -130,6 +143,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repmode_tpu_torch import native
@@ -167,6 +181,8 @@ from repmode_tpu_torch.ops.conv3d import (
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
+from repmode_tpu_torch.parallel.mesh import (
+    all_reduce_mean_, barrier, launch, make_mesh, replicate, shard_batch, sync_batch_norm)
 from repmode_tpu_torch.train import loop as loop_mod
 from repmode_tpu_torch.train.loop import (
     run_eval_pass, run_experiment, run_train_epoch, run_train_epoch_device)
@@ -745,9 +761,9 @@ def check_params(phase, report):
     check(not report["params_unchanged"], f"{phase}: a parameter did not change")
 
 
-def hold_gradients(phase, losses, grads, a, b, ref, **extra):
+def hold_gradients(phase, losses, grads, a, b, ref, global_limit=5e-2, **extra):
     """Hold route a's loss and gradients to route b's (both bf16): loss rel
-    <= 1e-2, global gradient rel L2 <= 5e-2, and every tensor's gradient
+    <= 1e-2, global gradient rel L2 <= ``global_limit``, and every tensor's gradient
     direction. Tensors whose two bf16 gradients point apart (cosine < 0.99)
     are ones whose gradient bf16 rounding does not resolve (near-cancelling
     sums, e.g. a BN bias ahead of a batch-normalized conv); over those
@@ -780,11 +796,12 @@ def hold_gradients(phase, losses, grads, a, b, ref, **extra):
            "tensors_cosine_below_0.99": unresolved,
            "below_0.99_pooled_rel_l2_vs_fp32": pooled,
            "tolerance": f"{a} vs {b}, both bf16: loss rel <= 1e-2, global gradient rel L2 <= "
-                        f"5e-2, per-tensor gradient cosine >= 0.99; over the tensors below 0.99 "
-                        f"together, {a}'s rel L2 to the fp32 {ref} <= 2x {b}'s"}
+                        f"{global_limit:.4g}, per-tensor gradient cosine >= 0.99; over the "
+                        f"tensors below 0.99 together, {a}'s rel L2 to the fp32 {ref} <= 2x "
+                        f"{b}'s"}
     emit(out)
     check(out["loss_rel"] <= 1e-2, f"{phase}: loss differs")
-    check(out["global_grad_rel_l2"] <= 5e-2, f"{phase}: gradients differ")
+    check(out["global_grad_rel_l2"] <= global_limit, f"{phase}: gradients differ")
     check(pooled is None or pooled[a] <= 2 * pooled[b],
           f"{phase}: gradients of {low} differ beyond the bf16 rounding of {b}")
 
@@ -2245,6 +2262,314 @@ def bank_phase(num_convs, card):
     del bank, built, res
     torch.cuda.empty_cache()
 
+# ------------------------------------------------------------------ dp phase
+# Two gloo ranks share cuda:0 (parallel.launch, spawn): they prove the data
+# parallel path on the card, not its scaling (both ranks share one card's SMs).
+
+DP_SEED = SEED + 80
+
+
+def dp_step_config(num_tasks, fp32=False):
+    """The native net at full width; ``fp32``: the expert-sum route in fp32
+    (its convs through F.conv3d, no bf16 rounding anywhere)."""
+    model = ModelConfig(train_s2d=False, train_impl="expert_sum") if fp32 else \
+        ModelConfig(train_s2d=False)
+    return Config(model=model, data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]),
+                  train=TrainConfig(compute_dtype="float32" if fp32 else "bfloat16"))
+
+
+def dp_first_step(cfg, batch, mesh=None):
+    """A fresh state from DP_SEED and one step on ``batch`` (with a mesh:
+    this rank's slice); (state, step, its metrics)."""
+    device = mesh.device if mesh is not None else "cuda"
+    state = create_train_state(cfg, torch.Generator().manual_seed(DP_SEED), device)
+    if mesh is not None:
+        sync_batch_norm(replicate(mesh, state.net), mesh)
+        batch = shard_batch(mesh, batch)
+    step = make_train_step(cfg, state, mesh)
+    m = step(batch)
+    torch.cuda.synchronize()
+    return state, lambda: step(batch), m
+
+
+def grads_of(net):
+    return {k: v.grad.detach().double().cpu() for k, v in net.named_parameters()}
+
+
+def running_stats(net):
+    return {k: v.detach().double().cpu() for k, v in net.state_dict().items() if "running" in k}
+
+
+def global_rel_l2(a, b):
+    return (sum(float((a[k] - b[k]).norm() ** 2) for k in b)
+            / sum(float(b[k].norm() ** 2) for k in b)) ** 0.5
+
+
+def max_rel(a, b):
+    """The largest per-tensor relative L2 difference of two tensor dicts."""
+    return max(float((a[k] - b[k]).norm() / (b[k].norm() + 1e-30)) for k in b)
+
+
+def dp_step_rank(num_tasks, out_dir, steps):
+    """One rank of the dp step check, on its 4 of the same 8 patches: the
+    full-width bf16 step (K2-K4, sync-BN, the gradient all-reduce over
+    gloo), then the fp32 expert-sum step. Rank 0 saves both steps' averaged
+    gradients and the bf16 step's BN running stats; every rank returns its
+    losses, the bf16 step's launches, whether its parameters and BN stats
+    equal rank 0's bit for bit after it, its step times, the gradient
+    all-reduce's times alone and its peak memory."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(2, "cuda:0")
+    batch = full_width_batch(num_tasks, seed=DP_SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, step, m = dp_first_step(dp_step_config(num_tasks), batch, mesh)
+    counts = kernel_counts()
+    flat = torch.cat([t.detach().reshape(-1).double() for t in
+                      list(state.net.parameters()) + list(state.net.buffers())])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=mesh.group)
+    if mesh.is_main:
+        torch.save({"grads": grads_of(state.net), "stats": running_stats(state.net)},
+                   os.path.join(out_dir, "bf16.pt"))
+    times, allreduce = [], []
+    for _ in range(steps):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    grads = [p.grad for p in state.net.parameters() if p.grad is not None]
+    for _ in range(3):  # the step's gradient all-reduce alone
+        barrier(mesh)
+        t0 = time.perf_counter()
+        all_reduce_mean_(mesh, grads)
+        torch.cuda.synchronize()
+        allreduce.append((time.perf_counter() - t0) * 1e3)
+    out = {"rank": mesh.rank, "loss": float(m["loss"]), "launches": counts,
+           "state_equals_rank0": bool(torch.equal(flat, ref)), "step_ms": times,
+           "grad_allreduce_ms": allreduce, "grad_bytes": sum(g.numel() * 4 for g in grads),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, step, m, grads, flat, ref
+    torch.cuda.empty_cache()
+    state, _, m = dp_first_step(dp_step_config(num_tasks, fp32=True), batch, mesh)
+    out["loss_fp32"] = float(m["loss"])
+    if mesh.is_main:
+        torch.save(grads_of(state.net), os.path.join(out_dir, "fp32.pt"))
+    return out
+
+
+def dp_run_stores(tasks):
+    """32x128x128 train volumes; val and test 32x256x256 (9 patches, two
+    predictor batches: one a rank, whose patches overlap, so the sharded
+    stitch adds partial sums of both ranks)."""
+    return {split: synthetic_store(tasks, 2, vol_shape=(32, 128, 128) if split == "train"
+                                   else (32, 256, 256), seed=DP_SEED + i)
+            for i, split in enumerate(("train", "val", "test"))}
+
+
+def dp_run_rank(exp_dir, tasks):
+    """One rank of run_experiment under two ranks (2 tasks x 2 synthetic
+    volumes, one epoch, val, test): its launches and predictor batches, and
+    on rank 0 the val volume of the sharded two_phase against the one-rank
+    fused predictor on the same weights."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(model=ModelConfig(train_s2d=False), data=DataConfig(adopted_datasets=tasks),
+                 train=TrainConfig(num_epochs=1, interval_val=1, num_devices=2),
+                 eval=EvalConfig(s2d=False), path_exp_dir=exp_dir, exp_name="dp")
+    stores = dp_run_stores(tasks)
+    reset_counts()
+    res = run_experiment(cfg, stores, device="cuda:0")
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    mesh = make_mesh(2, "cuda:0")
+    sharded = TiledPredictor(cfg, mode="two_phase", mesh=mesh)
+    batches = sum(sharded.grid(tuple(r.signal.shape))[0].shape[0] // mesh.size
+                  for split in ("val", "test") for r in stores[split].records)
+    rec = stores["val"][0]
+    with torch.no_grad():
+        plain = reparam.make_inference(cfg)[0](res["state"].net.state_dict(), rec.task)
+        got = sharded(plain, rec.signal)
+        out = {"rank": mesh.rank, "launches": counts, "steps": res["state"].step,
+               "predictor_batches": batches, "train_loss": res["train_log"]["loss/epoch"],
+               "test_mse": res["test_log"]["metric_test/MSE"]}
+        if mesh.is_main:
+            fused = TiledPredictor(cfg, device=mesh.device, mode="fused")(plain, rec.signal)
+            out["val_volume_rel_l2_two_phase_vs_fused"] = rel_l2(got, fused)
+            out["val_volume_norm"] = float(fused.norm())
+    return out
+
+
+def dp_phase(num_convs, card, num_tasks=4, steps=3):
+    """Data parallelism on the card: two gloo ranks on cuda:0 (the kernels
+    built in this process first, so no rank builds).
+
+    The step: each rank steps on its 4 of the same 8 patches, against one
+    rank stepping on all 8, from the same weights. A full-width gradient is
+    resolved only so far: the one-rank step on the same 8 patches with the
+    halves swapped (other orders of the batch's sums, the same function)
+    moves it, and that floor scales each limit. In fp32 through the expert
+    sum (no bf16 rounding: the data-parallel arithmetic alone): loss rel
+    <= 1e-5, gradient rel L2 <= 2x the fp32 floor. In bf16 through K2-K4
+    (launches 19/18/19 a rank-step, both ranks' parameters and BN stats
+    bit-equal after it): hold_gradients with the global limit the larger of
+    5e-2 and 2x the bf16 floor, and the two-rank gradient's error against
+    the fp32 one at most 1.1x the one-rank's. Its time beside the one-rank step's, the
+    gradient all-reduce's share, each rank's peak memory: no scaling is
+    measured (one card's SMs, gloo through the host).
+
+    run_experiment under two ranks: one .p, one metrics.jsonl, the sharded
+    two_phase val volume against fused within rel L2 1e-5, K1 19 a
+    predictor batch on each rank. cli.train --num_devices 2 on a one-card
+    machine raises JAX's make_mesh error."""
+    t_phase = time.perf_counter()
+    report = build.build()
+    check(all(r["cached"] for r in report.values()), "dp: a kernel was not built before the ranks")
+    batch = full_width_batch(num_tasks, seed=DP_SEED + 1)
+    losses, grads = {}, {}
+
+    # one rank: the fp32 expert-sum step (hold_gradients' reference) and the
+    # bf16 step, each also on the 8 patches with the halves swapped (their
+    # floors); the bf16 step is timed after
+    swap = torch.tensor([4, 5, 6, 7, 0, 1, 2, 3], device="cuda")
+    swapped = {k: v[swap] for k, v in batch.items()}
+    state, _, m = dp_first_step(dp_step_config(num_tasks, fp32=True), batch)
+    losses["expert_sum_fp32"], grads["expert_sum_fp32"] = float(m["loss"]), grads_of(state.net)
+    del state, m
+    torch.cuda.empty_cache()
+    state, _, _ = dp_first_step(dp_step_config(num_tasks, fp32=True), swapped)
+    floor_fp32 = global_rel_l2(grads_of(state.net), grads["expert_sum_fp32"])
+    del state
+    torch.cuda.empty_cache()
+    state, _, _ = dp_first_step(dp_step_config(num_tasks), swapped)
+    floor_grads, floor_stats = grads_of(state.net), running_stats(state.net)
+    del state, swapped
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, m = dp_first_step(dp_step_config(num_tasks), batch)
+    losses["one_rank"], grads["one_rank"] = float(m["loss"]), grads_of(state.net)
+    one_stats = running_stats(state.net)
+    one_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, m, batch
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        ranks = launch(dp_step_rank, 2, "cuda:0", "gloo", args=(num_tasks, tmp, steps),
+                       init_method=f"file://{tmp}/rendezvous_step", timeout_s=900)
+        step_launch_s = time.perf_counter() - t0
+        two = torch.load(os.path.join(tmp, "bf16.pt"))
+        grads["two_rank"] = two["grads"]
+        losses["two_rank"] = (ranks[0]["loss"] + ranks[1]["loss"]) / 2
+        fp32_two = torch.load(os.path.join(tmp, "fp32.pt"))
+        fp32_loss = (ranks[0]["loss_fp32"] + ranks[1]["loss_fp32"]) / 2
+        floor = global_rel_l2(floor_grads, grads["one_rank"])
+        fp32_check = {
+            "loss_rel": abs(fp32_loss - losses["expert_sum_fp32"]) / losses["expert_sum_fp32"],
+            "grad_rel_l2": global_rel_l2(fp32_two, grads["expert_sum_fp32"]),
+            "grad_max_tensor_rel_l2": max_rel(fp32_two, grads["expert_sum_fp32"])}
+        emit({"phase": "dp_step_fp32", "card": card, **fp32_check,
+              "grad_rel_l2_halves_swapped_vs_one_rank": floor_fp32,
+              "tolerance": "two ranks vs one, fp32 expert sum: loss rel <= 1e-5, global "
+                           "gradient rel L2 <= 2x the one-rank step's halves-swapped floor"})
+        emit({"phase": "dp_step_floor", "card": card,
+              "grad_rel_l2_halves_swapped_vs_one_rank": floor,
+              "grad_rel_l2_two_rank_vs_one_rank": global_rel_l2(grads["two_rank"],
+                                                                grads["one_rank"]),
+              "grad_rel_l2_two_rank_vs_halves_swapped": global_rel_l2(grads["two_rank"],
+                                                                      floor_grads),
+              "running_stats_max_rel_two_rank_vs_one_rank": max_rel(two["stats"], one_stats),
+              "running_stats_max_rel_halves_swapped_vs_one_rank": max_rel(floor_stats,
+                                                                          one_stats)})
+        med = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in ranks]
+        ar = [sorted(r["grad_allreduce_ms"])[1] for r in ranks]
+        emit({"phase": "dp_step_time", "card": card, "ranks": 2, "device": "cuda:0 (shared)",
+              "backend": "gloo", "batch_per_rank": 4, "two_rank_step_ms_median": med,
+              "two_rank_step_ms_all": [r["step_ms"] for r in ranks],
+              "grad_allreduce_ms_median": ar, "grad_allreduce_bytes": ranks[0]["grad_bytes"],
+              "grad_allreduce_share_of_step": [a / s for a, s in zip(ar, med)],
+              "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+              "one_rank_step_ms_median": sorted(one_ms)[len(one_ms) // 2],
+              "one_rank_step_ms_all": one_ms, "one_rank_peak_memory_gb": one_peak,
+              "launch_seconds": step_launch_s,
+              "note": "two ranks share one card's SMs and reduce through the host (gloo): "
+                      "no scaling is measured"})
+
+        # run_experiment under two ranks
+        tasks = DEFAULT_DATASETS[:2]
+        exp_dir = os.path.join(tmp, "exp")
+        t0 = time.perf_counter()
+        runs = launch(dp_run_rank, 2, "cuda:0", "gloo", args=(exp_dir, tasks),
+                      init_method=f"file://{tmp}/rendezvous_run", timeout_s=900)
+        run_s = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
+        records = [os.path.relpath(os.path.join(d, f), exp_dir)
+                   for d, _, fs in os.walk(exp_dir) for f in fs if f == "metrics.jsonl"]
+        emit({"phase": "dp_run", "card": card, "seconds": run_s, "checkpoints": ckpts,
+              "metrics_jsonl": records, "ranks": runs})
+
+        # the guard: two ranks of one card each on a one-card machine
+        guard = None
+        if torch.cuda.device_count() == 1:
+            try:
+                train_cli.main(["--synthetic", "--num_devices", "2", "--adopted_datasets", *tasks,
+                                "--path_exp_dir", os.path.join(tmp, "guard")])
+            except ValueError as e:
+                guard = str(e)
+            emit({"phase": "dp_guard", "error": guard})
+
+        # the checks, after every part has run and printed
+        check(fp32_check["loss_rel"] <= 1e-5 and fp32_check["grad_rel_l2"] <= 2 * floor_fp32,
+              "dp: the fp32 two-rank step differs from the one-rank step")
+        hold_gradients("dp_step", losses, grads, "two_rank", "one_rank", "expert_sum_fp32",
+                       global_limit=max(5e-2, 2 * floor), card=card,
+                       halves_swapped_floor=floor,
+                       launches_per_rank=[r["launches"] for r in ranks],
+                       state_equal_on_both_ranks=ranks[1]["state_equals_rank0"])
+        fp32_err = {k: global_rel_l2(grads[k], grads["expert_sum_fp32"])
+                    for k in ("two_rank", "one_rank")}
+        check(fp32_err["two_rank"] <= 1.1 * fp32_err["one_rank"],
+              f"dp: the two-rank bf16 gradient is further from fp32 than the one-rank's "
+              f"({fp32_err})")
+        for r in ranks:
+            for k, v in zip(("conv3d_same_persample", "conv3d_same_persample_transpose",
+                             "conv3d_dw_persample"), (num_convs, num_convs - 1, num_convs)):
+                check(r["launches"][k] == v, f"dp: rank {r['rank']} launched {k} "
+                                             f"{r['launches'][k]} times in its step")
+            check(r["launches"]["conv3d_same"] == 0, "dp: K1 launched in a train step")
+        check(ranks[1]["state_equals_rank0"], "dp: the ranks' parameters or BN stats differ")
+        check(ckpts == ["model_best_dp.p"], f"dp: checkpoints {ckpts}, expected one .p")
+        check(len(records) == 1, f"dp: {len(records)} metrics.jsonl, expected one")
+        check(runs[0]["val_volume_norm"] > 0, "dp: the val volume is zero: nothing to compare")
+        check(runs[0]["val_volume_rel_l2_two_phase_vs_fused"] <= 1e-5,
+              "dp: the sharded two_phase val volume differs from fused")
+        for r in runs:
+            check(r["steps"] == 1, f"dp: rank {r['rank']} took {r['steps']} steps, expected 1")
+            for k, v in zip(("conv3d_same_persample", "conv3d_same_persample_transpose",
+                             "conv3d_dw_persample"), (num_convs, num_convs - 1, num_convs)):
+                check(r["launches"][k] == v, f"dp run: rank {r['rank']} launched {k} "
+                                             f"{r['launches'][k]} times in its step")
+            check(r["launches"]["conv3d_same"] == num_convs * r["predictor_batches"],
+                  f"dp run: rank {r['rank']} K1 {r['launches']['conv3d_same']} launches for "
+                  f"{r['predictor_batches']} predictor batches")
+            check(np.isfinite(r["train_loss"]) and np.isfinite(r["test_mse"]),
+                  "dp run: non-finite loss or MSE")
+        check(runs[0]["test_mse"] == runs[1]["test_mse"], "dp run: the ranks' test MSEs differ")
+        if torch.cuda.device_count() == 1:
+            check(guard == "requested 2 devices, have 1", f"dp: the guard raised {guard!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "dp_done", "seconds": time.perf_counter() - t_phase})
+
 
 def card_name_and_limit():
     """The card's name and power limit, as nvidia-smi reports them."""
@@ -2284,6 +2609,7 @@ def main(argv=None):
                   "ingest": lambda: ingest_phase(len(convs), card),
                   "unet": lambda: unet_phase(len(convs), card),
                   "bank": lambda: bank_phase(len(convs), card),
+                  "dp": lambda: dp_phase(len(convs), card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -2334,6 +2660,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_s2d_step_phase(num_tasks=4)
     train_s2d_check_phase(num_tasks=4)
+    torch.cuda.empty_cache()
+    dp_phase(len(convs), card)
 
     def entry(name, source, replaces, launches, t):
         return {"name": name, "route": "cuda", "source": f"repmode_tpu_torch/csrc/{source}",

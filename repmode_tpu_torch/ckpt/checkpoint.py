@@ -69,27 +69,33 @@ def load_train_state(path: str, state: TrainState) -> TrainState:
 
 
 class CheckpointPolicy:
-    """Scheduled + best-on-val-MSE checkpointing (main.py:183-198)."""
+    """Scheduled + best-on-val-MSE checkpointing (main.py:183-198). With
+    ``write=False`` (a data-parallel rank other than 0) it takes the same
+    decisions and writes nothing."""
 
-    def __init__(self, cfg: Config, checkpoint_dir: str):
+    def __init__(self, cfg: Config, checkpoint_dir: str, write: bool = True):
         self.cfg = cfg
         self.dir = checkpoint_dir
+        self.write = write
         self.scheduled = set(expanded_checkpoint_epochs(cfg))
         self.best_metric = float(np.inf)
         self.best_path: Optional[str] = None
 
     def on_validation(self, epoch: int, val_mse: float, state: TrainState) -> List[str]:
-        """Called after each validation pass; returns the paths written."""
+        """Called after each validation pass; returns the paths written (or
+        that would be, without ``write``)."""
         saved = []
         exp = self.cfg.exp_name
         if (epoch + 1) in self.scheduled:
             p = os.path.join(self.dir, f"model_{exp}_{epoch + 1:04d}.p")
-            save_checkpoint(p, state, self.cfg)
+            if self.write:
+                save_checkpoint(p, state, self.cfg)
             saved.append(p)
         if val_mse < self.best_metric:
             self.best_metric = val_mse
             p = os.path.join(self.dir, f"model_best_{exp}.p")
-            save_checkpoint(p, state, self.cfg)
+            if self.write:
+                save_checkpoint(p, state, self.cfg)
             self.best_path = p
             saved.append(p)
         return saved

@@ -9,13 +9,19 @@ training in the native layout: no benchmark cell compares the two training
 routes yet (ROADMAP A12). The s2d routes are reached through a ``Config``
 (``model.train_s2d``, ``eval.s2d``, ``eval.pallas_conv``,
 ``eval.predictor``), as in the JAX package; there is no flag.
+
+``--num_devices N`` > 1 runs N data-parallel ranks (``launch_ranks``): one
+card a rank over NCCL under ``--device cuda``, or N gloo ranks on the CPU
+under ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from repmode_tpu_torch.config import (
     Config,
@@ -25,6 +31,7 @@ from repmode_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
 )
+from repmode_tpu_torch.parallel.mesh import launch
 
 
 def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
@@ -50,7 +57,9 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel devices (replaces --gpu_ids); only 1 is ported")
+                   help="data-parallel devices (replaces --gpu_ids): N > 1 runs N ranks, "
+                        "one card each over NCCL (--device cuda) or on the CPU over gloo "
+                        "(--device cpu)")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"],
                    help="conv compute dtype (bf16 = AMP-equivalent; the CUDA "
@@ -139,3 +148,15 @@ def to_config(ns: argparse.Namespace, exp_name: Optional[str] = None) -> Config:
         debugging=ns.debugging,
         monitor_model=ns.monitor_model,
     )
+
+
+def launch_ranks(fn: Callable, ns: argparse.Namespace):
+    """``fn(ns)`` on ``--num_devices`` ranks (``parallel.launch``): rank r on
+    ``cuda:r`` over NCCL, or every rank on the CPU over gloo; rank 0's
+    result. Fewer cards than ranks raise, as JAX's ``make_mesh`` does."""
+    dev = torch.device(ns.device)
+    if dev.type == "cuda" and dev.index is not None:
+        raise ValueError(f"--num_devices {ns.num_devices} runs one card a rank: pass "
+                         f"--device cuda, not {ns.device}")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    return launch(fn, ns.num_devices, dev, backend, args=(ns,))[0]

@@ -19,11 +19,14 @@ the tiled predictor (kernel K1), keeps the best checkpoint as a reference
 ``.p``, reloads it, writes the test metric CSVs and, when asked, the test
 predictions as TIFFs. The run record goes to ``<exp>/logs`` (``metrics.jsonl``,
 ``config.json``, ``code/``). ``--device cpu`` runs on the CPU; without it and
-without a card the run raises.
+without a card the run raises. ``--num_devices N`` trains data-parallel on N
+ranks (``train/loop.py``); rank 0 writes the logs, records, checkpoints and
+the saved dataset.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -32,13 +35,14 @@ import time
 import numpy as np
 import torch
 
-from repmode_tpu_torch.cli.args import build_parser, to_config
+from repmode_tpu_torch.cli.args import build_parser, launch_ranks, to_config
 from repmode_tpu_torch.data.ingest import ingest_split
 from repmode_tpu_torch.data.store import VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.device import resolve_device
+from repmode_tpu_torch.parallel.distributed import process_info
 from repmode_tpu_torch.train.loop import ExperimentDirs, run_experiment
-from repmode_tpu_torch.utils.logging import setup_logger
+from repmode_tpu_torch.utils.logging import rank_logger, setup_logger
 from repmode_tpu_torch.utils.tracking import Tracker
 
 
@@ -88,18 +92,32 @@ def snapshot_sources(cfg):
 
 
 def main(argv=None):
-    t0 = time.time()
     ns = build_parser().parse_args(argv)
-    if ns.num_devices != 1:
-        raise NotImplementedError("data-parallel training (--num_devices > 1) is not ported (A10)")
-    device = resolve_device(ns.device)
-    cfg = to_config(ns)
+    if ns.num_devices > 1:
+        return launch_ranks(_train_rank, ns)
+    return _train(ns)
 
+
+def _train_rank(ns):
+    """One rank of a data-parallel run; what it returns is pickled back."""
+    return {k: v for k, v in _train(ns).items() if k != "state"}
+
+
+def _train(ns):
+    t0 = time.time()
+    device = ns.device if ns.num_devices > 1 else resolve_device(ns.device)
+    cfg = to_config(ns)
     # seed the host RNGs (main.py:28-32); the weights come from a generator
     # seeded in run_experiment
     random.seed(cfg.train.seed)
     np.random.seed(cfg.train.seed)
     torch.manual_seed(cfg.train.seed)
+    rank = process_info()["process_index"]
+    if rank != 0:
+        # rank 0 alone writes: the logs, the run record, the saved dataset
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, path_save_dataset=None))
+        stores = build_stores(cfg, rank_logger(rank), synthetic=ns.synthetic)
+        return run_experiment(cfg, stores, device=device)
 
     dirs = ExperimentDirs(cfg)
     logger = setup_logger(dirs.logs, cfg.exp_name)

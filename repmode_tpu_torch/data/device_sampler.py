@@ -19,8 +19,10 @@ A batch is a function of ``(seed, epoch, step)``, as JAX's ``fold_in`` makes
 it: the permutation comes from a generator seeded from (seed, epoch), the
 crops and flips from one seeded from (seed, epoch, step), so resuming at any
 (epoch, step) gives the same batch. The streams are torch's, not
-``jax.random``'s: the law is the same, the bits are not. Sharding the batch
-over a device mesh (JAX's ``mesh``) is not ported (A10).
+``jax.random``'s: the law is the same, the bits are not. Under a data mesh
+(JAX's ``mesh``: ``parallel.mesh``) the bank is replicated on every rank's
+device and each rank draws the same global batch's crops and flips and
+gathers only its contiguous slice of it.
 """
 
 from __future__ import annotations
@@ -111,9 +113,15 @@ def make_device_sampler(
 ) -> Tuple[Callable[[int, int], Dict[str, torch.Tensor]], int]:
     """Returns (sample, steps_per_epoch); sample(epoch, step) ->
     {'signal', 'target'}: (B, pd, ph, pw, 1) fp32 and 'task': (B,) int32, on
-    the bank's device. A volume smaller than the patch raises here."""
+    the bank's device. With a ``mesh`` (a ``parallel.Mesh``; the bank on its
+    device) sample returns this rank's B / W rows of the global batch of B.
+    A volume smaller than the patch raises here."""
+    rows = slice(None)
     if mesh is not None:
-        raise NotImplementedError("a device mesh for the sampler is not ported yet (A10)")
+        if batch_size % mesh.size:
+            raise ValueError(f"a batch of {batch_size} does not split over {mesh.size} devices")
+        part = batch_size // mesh.size
+        rows = slice(mesh.rank * part, (mesh.rank + 1) * part)
     pd, ph, pw = (int(p) for p in patch_size)
     nvol = bank.num_volumes
     dev = bank.signals.device
@@ -149,6 +157,7 @@ def make_device_sampler(
         starts = (torch.rand((b, 3), generator=g, device=dev) * limits).long()
         starts = torch.minimum(starts, limits - 1)
         flips = torch.rand((b, 3), generator=g, device=dev) <= flip_prob
+        vidx, starts, flips = vidx[rows], starts[rows], flips[rows]
         # per axis, the index start + i, or start + p - 1 - i when flipped
         idx = [starts[:, a:a + 1] + torch.where(flips[:, a:a + 1], r.flip(0), r)
                for a, r in enumerate(ranges)]

@@ -10,7 +10,8 @@ A batch is assembled by the native C++ batcher (``native.crop_flip_batch``,
 the default, as in JAX) or by numpy (``use_native=False``). Both take the
 crops and flips of one RNG draw (``draw_crop_flip``, every sample of a batch
 first), so the batches are bit-equal whichever path runs, and equal to the
-JAX package's ``PatchSampler`` for the same seed. Where the JAX sampler falls
+JAX package's ``PatchSampler`` for the same seed, the padded tail under a
+mesh included. Where the JAX sampler falls
 back to numpy when the library cannot be built, this one raises.
 """
 
@@ -101,13 +102,20 @@ class PatchSampler:
             "task": tasks,
         }
 
-    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Yield one epoch of batches (each volume visited once)."""
+    def epoch(self, pad_tail_to_batch: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield one epoch of batches (each volume visited once).
+
+        ``pad_tail_to_batch`` fills the ragged tail batch with volumes drawn
+        at random from the epoch's order, as the JAX package does under a
+        mesh: every batch then splits evenly over the ranks."""
         order = np.arange(len(self.store))
         if self.shuffle:
             self.rng.shuffle(order)
         b = self.batch_size
         chunks = [order[i:i + b] for i in range(0, len(order), b)]
+        if pad_tail_to_batch and chunks and len(chunks[-1]) < b:
+            tail = chunks[-1]
+            chunks[-1] = np.concatenate([tail, self.rng.choice(order, size=b - len(tail))])
         if self.prefetch <= 0:
             for c in chunks:
                 yield self._make_batch(c)

@@ -11,13 +11,18 @@ in the JAX package:
              its forward;
   two_phase  the first pass predicts every batch into one (NB, B, pd, ph, pw)
              tensor, the second stitches them, batch by batch in the same
-             order as fused, so the two modes give the same volume.
+             order as fused, so the two modes give the same volume. Under a
+             data mesh (``parallel.mesh``, JAX's ``mesh``) the batch count
+             is padded to a multiple of the W ranks, each rank predicts and
+             stitches its contiguous block of NB / W batches into partial
+             sums, and the sums are all-reduced before the divide: a rank
+             holds NB / W batches of predictions, not NB.
 
 The start grid is the JAX package's: the patch list is padded to a multiple
-of the batch with copies of the last start whose blend weight is zero, so
-every batch has the same shape. The JAX scans over batches are Python loops
-here, and patches are added in the same order. Sharding the patch grid over
-a device mesh (the JAX two_phase ``mesh``) is not ported (A10).
+of the batch (under a mesh, of the batch times W) with copies of the last
+start whose blend weight is zero, so every batch has the same shape. The JAX
+scans over batches are Python loops here, and patches are added in the same
+order.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repmode_tpu_torch.device import DeviceLike, resolve_device
 from repmode_tpu_torch.infer.tiling import compute_patch_starts
 from repmode_tpu_torch.models.reparam import make_inference
 from repmode_tpu_torch.ops.gaussian import gaussian_importance_map
+from repmode_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
 
 MODES = ("fused", "two_phase")
 
@@ -45,7 +51,9 @@ class TiledPredictor:
 
     ``forward_fn`` replaces the forward of ``make_inference(cfg)`` (which
     honours ``cfg.eval.s2d`` and ``cfg.eval.pallas_conv``); ``mode``
-    replaces ``cfg.eval.predictor``.
+    replaces ``cfg.eval.predictor``. A ``mesh`` shards ``two_phase`` over
+    its ranks, each on its own device (``device`` is then the mesh's); every
+    rank calls the predictor on the same volume and gets the whole result.
     """
 
     def __init__(
@@ -54,15 +62,15 @@ class TiledPredictor:
         device: DeviceLike = "cuda",
         forward_fn: Optional[Callable] = None,
         mode: Optional[str] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
         self.mode = mode or cfg.eval.predictor
         if self.mode not in MODES:
             raise ValueError(f"predictor mode {self.mode!r} must be one of {MODES}")
-        if mesh is not None:
-            raise NotImplementedError("a device mesh for the two_phase predictor is not "
-                                      "ported yet (A10)")
+        if mesh is not None and self.mode != "two_phase":
+            raise ValueError(f"a mesh shards the two_phase predictor only, not {self.mode!r}")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.cfg = cfg
         self.patch_size = tuple(cfg.eval.patch_size)
         self.overlap = cfg.eval.overlap
@@ -77,6 +85,8 @@ class TiledPredictor:
         starts = compute_patch_starts(vol_shape, self.patch_size, self.overlap)
         p = starts.shape[0]
         nb = -(-p // self.batch)
+        if self.mesh is not None:  # pad the batch count to a multiple of the ranks
+            nb = -(-nb // self.mesh.size) * self.mesh.size
         pad = nb * self.batch - p
         if pad:
             starts = np.concatenate([starts, np.repeat(starts[-1:], pad, 0)], 0)
@@ -110,14 +120,20 @@ class TiledPredictor:
         vol_shape = tuple(int(s) for s in vol.shape)
         starts, valid, _ = self.grid(vol_shape)
         starts, valid = starts.tolist(), valid.tolist()
-        pred_sum = torch.zeros(vol_shape, dtype=torch.float32, device=self.device)
-        weight_sum = torch.zeros_like(pred_sum)
+        sums = torch.zeros((2, *vol_shape), dtype=torch.float32, device=self.device)
+        pred_sum, weight_sum = sums  # views: one all-reduce takes both
         if self.mode == "fused":
             for st_b, valid_b in zip(starts, valid):
                 preds = self._predict(plain_params, vol, st_b)
                 self._accumulate(pred_sum, weight_sum, preds, st_b, valid_b)
         else:
+            if self.mesh is not None:  # this rank's contiguous block of batches
+                per = len(starts) // self.mesh.size
+                block = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+                starts, valid = starts[block], valid[block]
             preds = torch.stack([self._predict(plain_params, vol, st_b) for st_b in starts])
             for preds_b, st_b, valid_b in zip(preds, starts, valid):
                 self._accumulate(pred_sum, weight_sum, preds_b, st_b, valid_b)
+            if self.mesh is not None:
+                all_reduce_sum_(self.mesh, sums)
         return pred_sum / weight_sum

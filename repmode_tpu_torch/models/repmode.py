@@ -102,11 +102,13 @@ _TRAIN_OPS_S2D = {
 
 def _bn(x: torch.Tensor, bn: nn.BatchNorm3d, phases: int = 1) -> torch.Tensor:
     """Batch statistics in training mode (running stats updated), running
-    statistics in eval mode; ``phases=4`` for an s2d tensor."""
+    statistics in eval mode; ``phases=4`` for an s2d tensor. A module marked
+    by ``parallel.sync_batch_norm`` takes the statistics of every rank's batch."""
     if bn.training:
         return batch_norm_train(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                 momentum=bn.momentum, eps=bn.eps,
-                                num_batches_tracked=bn.num_batches_tracked, phases=phases)
+                                num_batches_tracked=bn.num_batches_tracked, phases=phases,
+                                group=getattr(bn, "sync_group", None))
     return batch_norm_apply(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
                             phases=phases)
 

@@ -23,8 +23,15 @@ The patch pipeline is the JAX package's choice (``on_device_pipeline``):
 the device bank (``data/device_sampler``) when forced, or under auto when
 the padded bank fits ``device_bank_budget_bytes``; else the host sampler.
 
-Not ported: data parallelism (A10), which raises where it is asked for, and
-the profiler hook (A12a).
+Data parallelism (``train.num_devices`` > 1) follows the JAX loop: every
+rank of a group started by ``parallel.launch`` runs this function on its
+device; the net is replicated with sync-BN, each rank steps on its slice of
+the same global batch (the host sampler's tail padded), gradients are
+averaged, the fused predictor becomes the sharded two_phase one, and the
+epoch's metrics are summed over the ranks at the epoch's one sync point.
+Every rank takes the same checkpoint decisions (its val MSE is the same);
+rank 0 alone writes the tracker, the CSVs, the TIFFs and the checkpoints,
+and the others wait for it before they reload the best one.
 """
 
 from __future__ import annotations
@@ -47,9 +54,13 @@ from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.metrics.aggregate import MetricAggregator
 from repmode_tpu_torch.metrics.metrics import metric_stats
 from repmode_tpu_torch.models.reparam import StateDict, make_inference
+from repmode_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_sum_, barrier, make_mesh, replicate, shard_batch, sync_batch_norm)
 from repmode_tpu_torch.train.state import TrainState, create_train_state, param_count
 from repmode_tpu_torch.train.step import make_train_step
 from repmode_tpu_torch.utils import tiff
+from repmode_tpu_torch.utils.logging import rank_logger
+from repmode_tpu_torch.utils.timing import profile_trace
 from repmode_tpu_torch.utils.tracking import Tracker
 
 
@@ -118,37 +129,55 @@ def _save_volume(pred_dir: str, idx: int, kind: str, rec, arr: np.ndarray) -> No
 
 
 def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampler,
-                    epoch: int) -> dict:
+                    epoch: int, mesh: Optional[Mesh] = None) -> dict:
     """One epoch from the host sampler; returns its log dict. The host reads
-    the metrics once, at the epoch's end."""
+    the metrics once, at the epoch's end. Under a ``mesh`` the tail batch is
+    padded to full size and each rank steps on its slice of every batch."""
     t0 = time.perf_counter()
     device = next(state.net.parameters()).device
-    pending = [step_fn({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
-               for batch in sampler.epoch()]
-    return _epoch_log(cfg, state, pending, epoch, t0)
+    pending = []
+    for batch in sampler.epoch(pad_tail_to_batch=mesh is not None):
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        else:
+            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        pending.append(step_fn(batch))
+    return _epoch_log(cfg, state, pending, epoch, t0, mesh)
 
 
 def run_train_epoch_device(cfg: Config, state: TrainState, step_fn, sample_fn, steps: int,
-                           epoch: int) -> dict:
+                           epoch: int, mesh: Optional[Mesh] = None) -> dict:
     """One epoch from the device sampler: ``sample_fn(epoch, step)`` feeds the
-    step with no host work between steps (``data/device_sampler``)."""
+    step with no host work between steps (``data/device_sampler``; under a
+    ``mesh`` it draws this rank's slice)."""
     t0 = time.perf_counter()
     pending = [step_fn(sample_fn(epoch, s)) for s in range(steps)]
-    return _epoch_log(cfg, state, pending, epoch, t0)
+    return _epoch_log(cfg, state, pending, epoch, t0, mesh)
 
 
-def _epoch_log(cfg: Config, state: TrainState, pending, epoch: int, t0: float) -> dict:
+def _epoch_log(cfg: Config, state: TrainState, pending, epoch: int, t0: float,
+               mesh: Optional[Mesh] = None) -> dict:
     """The epoch's log dict from its steps' metrics (the single sync point);
-    counts the epoch."""
+    counts the epoch. Under a ``mesh`` the losses and per-task sums are summed
+    over the ranks first (one all-reduce), so every rank logs the global
+    values."""
     num_tasks = cfg.num_tasks
+    rows = np.zeros((0, 1 + 2 * num_tasks))
+    if pending:
+        packed = torch.stack([torch.cat([m["loss"].reshape(1), m["per_task_loss_sum"],
+                                         m["per_task_count"]]).double() for m in pending])
+        if mesh is not None:
+            all_reduce_sum_(mesh, packed)
+            packed[:, 0] /= mesh.size  # the mean of the ranks' equal-sized slices
+        rows = packed.cpu().numpy()  # single sync point
     loss_sum = 0.0
     task_sums = np.zeros(num_tasks, np.float64)
     task_counts = np.zeros(num_tasks, np.float64)
     grad_norms = []
-    for metrics in pending:  # single sync point
-        loss_sum += float(metrics["loss"])
-        task_sums += metrics["per_task_loss_sum"].double().cpu().numpy()
-        task_counts += metrics["per_task_count"].double().cpu().numpy()
+    for row, metrics in zip(rows, pending):
+        loss_sum += float(row[0])
+        task_sums += row[1:1 + num_tasks]
+        task_counts += row[1 + num_tasks:]
         if "grad_norm" in metrics:
             grad_norms.append(float(metrics["grad_norm"]))
 
@@ -174,27 +203,58 @@ def use_device_bank(cfg: Config, store: VolumeStore) -> Tuple[bool, int]:
     return 0 < bank_bytes <= cfg.train.device_bank_budget_bytes, bank_bytes
 
 
+class _NoTracker:
+    """The run record of a rank other than 0: nothing is written."""
+
+    def log(self, log_dict) -> None:
+        pass
+
+    def set_summary(self, key, value) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
 def run_experiment(
     cfg: Config,
     stores: Dict[str, VolumeStore],
     logger: Optional[logging.Logger] = None,
     device: DeviceLike = "cuda",
     tracker: Optional[Tracker] = None,
+    profile_dir: Optional[str] = None,
 ) -> Dict:
     """Full train + val + test experiment (reference main.main, main.py:21-234).
     Without a ``tracker`` an offline one writes ``<logs>/metrics.jsonl``.
+    ``profile_dir`` records a ``torch.profiler`` trace of the first trained
+    epoch there (``utils/timing.profile_trace``), as the JAX loop's
+    ``REPMODE_PROFILE_DIR`` does.
+
+    With ``cfg.train.num_devices`` > 1 every rank of a group of that size
+    (``parallel.launch``) calls this with the same arguments; ``device``
+    then names the ranks' devices as ``parallel.make_mesh`` reads it, and a
+    process outside such a group raises.
 
     Returns {'state', 'best_path', 'train_log' (the last epoch's, when one
     ran), 'test_log' (when there is a test store)}.
     """
     logger = logger or logging.getLogger("SSP")
+    mesh = None
+    if cfg.train.num_devices > 1:
+        mesh = make_mesh(cfg.train.num_devices, device)
+        device = mesh.device
+        if not mesh.is_main:
+            logger = rank_logger(mesh.rank)
+        logger.info(f"[MESH]    Data-parallel mesh over {mesh.size} devices")
     device = resolve_device(device)
-    if cfg.train.num_devices != 1:
-        raise NotImplementedError("data-parallel training (num_devices > 1) is not ported (A10)")
+    main = mesh is None or mesh.is_main
     dirs = ExperimentDirs(cfg)
+    if not main:
+        tracker = _NoTracker()
     tracker = tracker or Tracker(dirs.logs, offline=True)
-    with open(os.path.join(dirs.logs, f"train_options_{cfg.exp_name}.json"), "w") as f:
-        f.write(cfg.to_json())
+    if main:
+        with open(os.path.join(dirs.logs, f"train_options_{cfg.exp_name}.json"), "w") as f:
+            f.write(cfg.to_json())
 
     # model init / resume (main.py:129-138)
     state = create_train_state(cfg, torch.Generator().manual_seed(cfg.train.seed), device)
@@ -204,8 +264,10 @@ def run_experiment(
     else:
         logger.info(f"[MODEL]   Model initialized as: {cfg.model.name}")
     logger.info(f"[MODEL]   Parameters: {param_count(state):,}")
+    if mesh is not None:
+        sync_batch_norm(replicate(mesh, state.net), mesh)
 
-    step_fn = make_train_step(cfg, state)
+    step_fn = make_train_step(cfg, state, mesh)
     sampler = device_sample = None
     if "train" in stores and len(stores["train"]):
         use_bank, bank_bytes = use_device_bank(cfg, stores["train"])
@@ -216,7 +278,7 @@ def run_experiment(
             bank = DeviceVolumeBank.from_store(stores["train"], device)
             device_sample, steps_per_epoch = make_device_sampler(
                 bank, cfg.train.batch_size, cfg.train.patch_size, cfg.train.random_flip_prob,
-                seed=cfg.train.seed + 1)
+                seed=cfg.train.seed + 1, mesh=mesh)
             logger.info(f"[DATA]    On-device pipeline: bank of {bank.num_volumes} volumes "
                         f"padded to {bank.vol_shape} in device memory "
                         "(once-per-volume permutation epochs)")
@@ -224,19 +286,28 @@ def run_experiment(
             sampler = PatchSampler(stores["train"], cfg.train.batch_size, cfg.train.patch_size,
                                    seed=cfg.train.seed, flip_prob=cfg.train.random_flip_prob)
             logger.info("[DATA]    Host pipeline: PatchSampler")
-    predictor = TiledPredictor(cfg, device=device)
-    policy = CheckpointPolicy(cfg, dirs.checkpoints)
+    # under a mesh eval uses every rank: fused is a one-device loop, so the
+    # sharded two_phase predictor takes its place, as in the JAX loop
+    pred_mode = cfg.eval.predictor
+    if mesh is not None and pred_mode == "fused":
+        pred_mode = "two_phase"
+        logger.info("[EVAL]    DP mesh: predictor fused -> two_phase "
+                    "(patch grid sharded over all devices)")
+    predictor = TiledPredictor(cfg, device=device, mode=pred_mode, mesh=mesh)
+    policy = CheckpointPolicy(cfg, dirs.checkpoints, write=main)
     results: Dict = {}
 
     # epoch loop (main.py:156-199)
-    for epoch in range(state.epoch, cfg.train.num_epochs):
-        if device_sample is not None:
-            log = run_train_epoch_device(cfg, state, step_fn, device_sample, steps_per_epoch,
-                                         epoch)
-        elif sampler is not None:
-            log = run_train_epoch(cfg, state, step_fn, sampler, epoch)
-        else:
-            raise ValueError("no train volumes: the train store is missing or empty")
+    start_epoch = state.epoch
+    for epoch in range(start_epoch, cfg.train.num_epochs):
+        with profile_trace(profile_dir if epoch == start_epoch else None):
+            if device_sample is not None:
+                log = run_train_epoch_device(cfg, state, step_fn, device_sample,
+                                             steps_per_epoch, epoch, mesh)
+            elif sampler is not None:
+                log = run_train_epoch(cfg, state, step_fn, sampler, epoch, mesh)
+            else:
+                raise ValueError("no train volumes: the train store is missing or empty")
         results["train_log"] = log
         logger.info("[TRAIN]   NO.{} epoch training | loss: {:.6f}".format(
             epoch + 1, log["loss/epoch"]))
@@ -257,6 +328,8 @@ def run_experiment(
                 tracker.set_summary("metric_val/MSE_best", policy.best_metric)
 
     # reload best + final test (main.py:209-225)
+    if mesh is not None:
+        barrier(mesh)  # rank 0 has written the best checkpoint
     if policy.best_path is not None:
         load_train_state(policy.best_path, state)
         logger.info(f"[ACTION]  Evaluate model: {policy.best_path}")
@@ -265,9 +338,10 @@ def run_experiment(
     if "test" in stores:
         with torch.no_grad():
             test_log, agg = run_eval_pass(cfg, state.net.state_dict(), stores["test"],
-                                          predictor, "test", pred_dir=dirs.preds)
+                                          predictor, "test", pred_dir=dirs.preds if main else None)
         logger.info("[TEST]    Test | MSE: {:.6f}".format(test_log["metric_test/MSE"]))
-        agg.to_csvs(dirs.metrics, cfg.exp_name)
+        if main:
+            agg.to_csvs(dirs.metrics, cfg.exp_name)
         for k, v in test_log.items():
             tracker.set_summary(k, v)
         results["test_log"] = test_log

@@ -33,3 +33,12 @@ def setup_logger(log_dir: Optional[str] = None, exp_name: str = "exp") -> loggin
         logger.addHandler(fh)
 
     return logger
+
+
+def rank_logger(rank: int) -> logging.Logger:
+    """The logger of a data-parallel rank other than 0: its records reach no
+    handler of its own and none of ``SSP``'s (rank 0 logs the run), so only
+    warnings show, through logging's last-resort handler."""
+    logger = logging.getLogger(f"SSP.rank{rank}")
+    logger.propagate = False
+    return logger

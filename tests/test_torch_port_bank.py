@@ -25,6 +25,7 @@ from repmode_tpu_torch.config import Config, DataConfig, EvalConfig, ModelConfig
 from repmode_tpu_torch.data.device_sampler import DeviceVolumeBank, make_device_sampler
 from repmode_tpu_torch.data.store import VolumeRecord, VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
+from repmode_tpu_torch.parallel import Mesh
 from repmode_tpu_torch.train.loop import run_experiment, use_device_bank
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -153,8 +154,15 @@ def test_volume_smaller_than_patch_rejected():
     bk = DeviceVolumeBank.from_store(identity_store([(8, 16, 16), (4, 16, 16)]), "cpu")
     with pytest.raises(ValueError, match="smaller than the patch"):
         make_device_sampler(bk, 2, (8, 16, 16))
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_device_sampler(bk, 2, (4, 16, 16), mesh=object())
+    # under a 2-rank mesh each rank gathers its row of the same global batch
+    whole, _ = make_device_sampler(bk, 2, (4, 16, 16), seed=5)
+    parts = [make_device_sampler(bk, 2, (4, 16, 16), seed=5,
+                                 mesh=Mesh(r, 2, torch.device("cpu"), None))[0] for r in range(2)]
+    for epoch, step in [(0, 0), (3, 0)]:
+        ref, got = whole(epoch, step), [p(epoch, step) for p in parts]
+        for k in ref:
+            assert got[0][k].shape[0] == 1
+            assert torch.equal(torch.cat([g[k] for g in got]), ref[k]), k
 
 
 def test_unlabeled_volume_refused():

@@ -40,6 +40,7 @@ from repmode_tpu_torch.models import reparam
 from repmode_tpu_torch.models.repmode import RepModeNet
 from repmode_tpu_torch.ops import s2d
 from repmode_tpu_torch.ops.conv3d import conv3d_dpad, conv3d_dpad_plain, conv3d_same_tapmajor
+from repmode_tpu_torch.parallel import Mesh
 from repmode_tpu_torch.train.loop import run_eval_pass
 
 torch.set_num_threads(2)
@@ -436,8 +437,13 @@ def test_predictor_refuses_unknown_mode_and_mesh():
     c = _cfg(ModelConfig(mult_chan=2, depth=2), s2d=False)
     with pytest.raises(ValueError, match="mode"):
         TiledPredictor(c, device="cpu", mode="scan")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TiledPredictor(c, device="cpu", mode="two_phase", mesh=object())
+    # two_phase takes a mesh (and pads the batch count to its size); fused does not
+    mesh = Mesh(1, 2, torch.device("cpu"), None)
+    pred = TiledPredictor(c, device="cpu", mode="two_phase", mesh=mesh)
+    starts, valid, n = pred.grid((32, 192, 128))  # 2 patches: 1 batch, padded to 2
+    assert pred.mesh is mesh and n == 2 and starts.shape[0] == 2 and valid[1].sum() == 0
+    with pytest.raises(ValueError, match="two_phase predictor only"):
+        TiledPredictor(c, device="cpu", mode="fused", mesh=mesh)
 
 
 def test_predictor_takes_a_forward_fn(predictor_case):

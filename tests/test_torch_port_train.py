@@ -264,14 +264,15 @@ def test_run_experiment_checkpoints_and_resumes(tmp_path):
 
 
 def test_run_experiment_refuses_unported_options(tmp_path):
-    """Data parallelism (A10) and an Orbax directory (which names the
-    converter) raise; the on-device pipeline, forced, trains."""
+    """num_devices 2 outside a launched group (which names parallel.launch)
+    and an Orbax directory (which names the converter) raise; the on-device
+    pipeline, forced, trains."""
     cfg = tiny_config(tmp_path)
     res = run_experiment(dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, on_device_pipeline=True, num_epochs=1)),
         tiny_stores(("dna",)), device="cpu")
     assert res["state"].step == 1 and np.isfinite(res["train_log"]["loss/epoch"])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(RuntimeError, match="launch the run through.*parallel.launch"):
         run_experiment(dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, num_devices=2)), {}, device="cpu")
     orbax_dir = tmp_path / "orbax_ckpt"
@@ -299,15 +300,19 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
         train_cli.main(["--synthetic", "--path_exp_dir", str(tmp_path / "e")])
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--num_devices", "2"], "A10"),
-    (["--path_load_model", "{orbax_dir}", "--mult_chan", "2"], "Orbax.*convert_orbax_checkpoint"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--device", "cuda", "--num_devices", "2"], ValueError, "requested 2 devices, have 1"),
+    (["--path_load_model", "{orbax_dir}", "--mult_chan", "2"], NotImplementedError,
+     "Orbax.*convert_orbax_checkpoint"),
 ])
-def test_train_cli_refuses_unported_flags(argv, match, tmp_path):
+def test_train_cli_refuses_unported_flags(argv, error, match, tmp_path, monkeypatch):
+    """Two ranks on a machine with one card raise JAX's make_mesh error
+    before any rank starts; an Orbax directory names the converter."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     orbax_dir = tmp_path / "orbax_ckpt"
     orbax_dir.mkdir()
     argv = [a.format(orbax_dir=orbax_dir) for a in argv]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train_cli.main(["--synthetic", "--device", "cpu", "--path_exp_dir", str(tmp_path / "e"),
                         *argv])
 
