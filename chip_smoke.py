@@ -115,6 +115,16 @@ kernels):
                 checkpoint, one metrics.jsonl, the sharded two_phase val
                 volume against fused, K1 19 a predictor batch on each rank);
                 cli.train --num_devices 2 on one card raises JAX's error.
+  bench         the port's measurement entry points in-process at full width,
+                with short protocols: bench_torch.serve's three routes
+                (native, XLA s2d, K5) on bench.py's 32x624x924 volume, 2
+                timed calls each after a warm-up, and bench_torch.train's
+                native and s2d steps (auto) and native expert_sum on
+                tools/bench_train.py's batch, 3 steps a protocol; each record
+                names the card, has an MFU of at most 1.05 and passed its
+                entry point's correctness check; K1 19 a native batch, 20 an
+                XLA s2d one, 12 and K5 7 a K5 one; K2/K3/K4 19/18/19 a native
+                step, K6 1 and 17/17/18 an s2d step, none an expert_sum step.
 
 The phases before train_s2d_kernel build their nets with train_s2d=False:
 they hold the native layout, as they did before the s2d training path.
@@ -189,6 +199,9 @@ from repmode_tpu_torch.train.loop import (
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
 from repmode_tpu_torch.utils import tiff
+from bench_torch import common as bench_common
+from bench_torch import serve as bench_serve
+from bench_torch import train as bench_train
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -2571,6 +2584,92 @@ def dp_phase(num_convs, card, num_tasks=4, steps=3):
     emit({"phase": "dp_done", "seconds": time.perf_counter() - t_phase})
 
 
+BENCH_TRAIN_PAIRS = [("native", "auto"), ("s2d", "auto"), ("native", "expert_sum")]
+
+
+def bench_phase(card):
+    """bench_torch.serve and bench_torch.train in-process at full width
+    (their default configs, weights, volume and batch), with short
+    protocols: serve 2 timed calls a route in 1 round, train 3 steps a
+    protocol in 1 round. Their records are emitted as they would print; the
+    launches of each record and of the whole phase are held to the kernel
+    table's counts."""
+    t0 = time.perf_counter()
+    dev = bench_common.device_record("cuda")
+    kind = torch.cuda.get_device_name(0)
+    check(dev.card == card and dev.kind == kind and dev.power_limit_w is not None,
+          f"bench: device record {dev}")
+
+    def hold(rec, name):
+        check(rec["mfu"] is not None and 0 < rec["mfu"] <= 1.05, f"bench: {name} mfu {rec['mfu']}")
+        check(rec["power_limit_w"] == dev.power_limit_w, f"bench: {name} power limit")
+
+    cfg = bench_serve.bench_config()
+    levels = len(reparam.default_s2d_levels(cfg.model))
+    convs = 4 * cfg.model.depth + 3
+    k5 = 4 * levels - 1
+    per_batch = {"native": {"conv3d_same": convs},
+                 "s2d": {"conv3d_same": convs - 1 + levels},
+                 "k5": {"conv3d_same": convs - k5, "conv3d_dpad": k5}}
+    routes = list(bench_serve.ROUTES)
+    reps = 2
+    state = bench_serve.seeded_state_dict(cfg, 0, "cuda")
+    vol = bench_serve.seeded_volume()
+    reset_counts()
+    runs, records, failures = bench_serve.measure(cfg, state, vol, routes, reps, 1, dev)
+    counts = kernel_counts()
+    for rec in records:
+        emit({"phase": "bench_serve", **rec})
+    check(not failures, f"bench: serve {failures}")
+    check([r["route"] for r in records] == routes, "bench: a serving route did not run as asked")
+    batches = records[0]["batches_per_volume"]
+    for rec in records:
+        hold(rec, rec["route"])
+        check(rec["device_kind"] == kind, f"bench: {rec['route']} names {rec['device_kind']}")
+        want = {k: v * batches for k, v in per_batch[rec["route"]].items()}
+        check(rec["launches_per_volume"] == want,
+              f"bench: {rec['route']} launched {rec['launches_per_volume']} a volume, want {want}")
+    calls = reps + 1  # each route's warm-up and timed calls
+    want = {k: calls * batches * sum(pb.get(k, 0) for pb in per_batch.values())
+            for k in ("conv3d_same", "conv3d_dpad")}
+    check({k: counts[k] for k in want} == want, f"bench: the serving run launched {counts}")
+    del runs, state, vol
+    torch.cuda.empty_cache()
+
+    tcfg = bench_train.bench_config()
+    steps = 3
+    state = bench_train.seeded_state_dict(tcfg, 0, "cuda")
+    batch = bench_train.seeded_batch()
+    reset_counts()
+    runs, trecords, failures = bench_train.measure(tcfg, state, batch, BENCH_TRAIN_PAIRS, steps, 1,
+                                                   dev)
+    counts = kernel_counts()
+    for rec in trecords:
+        emit({"phase": "bench_train", **rec})
+    check(not failures, f"bench: train {failures}")
+    per_step = {("native", "auto"): {"conv3d_same_persample": 19,
+                                     "conv3d_same_persample_transpose": 18,
+                                     "conv3d_dw_persample": 19},
+                ("s2d", "auto"): {"conv3d_same_persample": 17,
+                                  "conv3d_same_persample_transpose": 17,
+                                  "conv3d_dw_persample": 18, "conv3d_tapconcat_persample": 1},
+                ("native", "expert_sum"): {}}
+    check([(r["layout"], r["train_impl"]) for r in trecords] == BENCH_TRAIN_PAIRS,
+          "bench: a training pair is missing")
+    for rec in trecords:
+        pair = (rec["layout"], rec["train_impl"])
+        hold(rec, pair)
+        check(rec["device"] == kind, f"bench: {pair} names {rec['device']}")
+        check(rec["launches_per_step"] == per_step[pair],
+              f"bench: {pair} launched {rec['launches_per_step']} a step, want {per_step[pair]}")
+    stepped = 2 * steps + 1  # each pair's first step and both protocols' steps
+    want = {k: stepped * sum(ps.get(k, 0) for ps in per_step.values()) for k in counts}
+    check(counts == want, f"bench: the training run launched {counts}, want {want}")
+    del runs, state
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_done", "seconds": time.perf_counter() - t0})
+
+
 def card_name_and_limit():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2610,6 +2709,7 @@ def main(argv=None):
                   "unet": lambda: unet_phase(len(convs), card),
                   "bank": lambda: bank_phase(len(convs), card),
                   "dp": lambda: dp_phase(len(convs), card),
+                  "bench": lambda: bench_phase(card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -2662,6 +2762,8 @@ def main(argv=None):
     train_s2d_check_phase(num_tasks=4)
     torch.cuda.empty_cache()
     dp_phase(len(convs), card)
+    torch.cuda.empty_cache()
+    bench_phase(card)
 
     def entry(name, source, replaces, launches, t):
         return {"name": name, "route": "cuda", "source": f"repmode_tpu_torch/csrc/{source}",

@@ -230,18 +230,21 @@ def test_metrics_and_csvs_match_jax(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter imports every port module and gains no jax module,
-    nothing of repmode_tpu and no pandas (the card's machine has none)."""
+    """A fresh interpreter imports every module of the port and of its
+    measurement entry points (``bench_torch``) and gains no jax module,
+    nothing of repmode_tpu, of bench.py or of tools/, and no pandas (the
+    card's machine has none)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "before = set(sys.modules)\n"
-        "import repmode_tpu_torch as pkg\n"
-        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "import repmode_tpu_torch as pkg, bench_torch as bpkg\n"
+        "names = [m.name for p in (pkg, bpkg)\n"
+        "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'repmode_tpu',\n"
-        "                                                  'pandas'))\n"
-        "assert len(names) >= 20, names\n"
+        "                                                  'pandas', 'bench', 'tools'))\n"
+        "assert len(names) >= 20 and 'bench_torch.serve' in names and 'bench_torch.train' in names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -252,17 +255,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    """No source file of the port imports jax, flax, repmode_tpu or pandas, even
-    lazily; ``native/`` is scanned with the rest, and its C++ source is there."""
+    """No source file of the port or of ``bench_torch`` imports jax, flax,
+    repmode_tpu or pandas, even lazily, nor bench.py or tools/; ``native/`` is
+    scanned with the rest, and its C++ source is there."""
     import ast
 
     root = os.path.join(REPO, "repmode_tpu_torch")
     bad = []
-    for dirpath, _, files in os.walk(root):
+    scanned = set()
+    for dirpath, _, files in [w for top in (root, os.path.join(REPO, "bench_torch"))
+                              for w in os.walk(top)]:
         for fn in files:
             if not fn.endswith(".py"):
                 continue
             path = os.path.join(dirpath, fn)
+            scanned.add(os.path.relpath(path, REPO))
             for node in ast.walk(ast.parse(open(path).read(), path)):
                 if isinstance(node, ast.Import):
                     mods = [a.name for a in node.names]
@@ -271,8 +278,10 @@ def test_port_sources_name_no_jax_import():
                 else:
                     continue
                 bad += [(path, m) for m in mods
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "repmode_tpu", "pandas")]
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "repmode_tpu", "pandas",
+                                               "bench", "tools")]
     assert not bad, bad
+    assert {"bench_torch/serve.py", "bench_torch/train.py", "bench_torch/profile.py"} <= scanned
     assert os.path.isfile(os.path.join(root, "native", "__init__.py"))
     assert os.path.isfile(os.path.join(root, "native", "patchops.cpp"))
 
