@@ -125,6 +125,18 @@ kernels):
                 entry point's correctness check; K1 19 a native batch, 20 an
                 XLA s2d one, 12 and K5 7 a K5 one; K2/K3/K4 19/18/19 a native
                 step, K6 1 and 17/17/18 an s2d step, none an expert_sum step.
+  parity        the correctness tools (tools_torch/) at full width:
+                parity_check's card mode on the PyTorch reference's fp64
+                golden (x 2x1x16x32x32, 12 tasks): the fp32 expert_sum arm
+                within its CPU-fixed limits, the bf16 kernel arm (K1-K6)
+                within the larger of the bf16 rule and twice the bf16
+                expert_sum arm's error, the planted faults (each expert
+                leaf's gradient zeroed, doubled) caught on every leaf, each
+                kernel launched as its path says; then train_parity for 4
+                steps (batch 2, 12 tasks): the fp32 reference arm
+                bit-identical twice, K2/K3/K4 19/18/19 a kernel-arm step,
+                finite losses (its val-MSE rule is the tool's own 300-step
+                record's: at a few steps it cannot tell a kernel from chaos).
 
 The phases before train_s2d_kernel build their nets with train_s2d=False:
 they hold the native layout, as they did before the s2d training path.
@@ -202,6 +214,8 @@ from repmode_tpu_torch.utils import tiff
 from bench_torch import common as bench_common
 from bench_torch import serve as bench_serve
 from bench_torch import train as bench_train
+from tools_torch import parity_check
+from tools_torch import train_parity
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -2670,6 +2684,84 @@ def bench_phase(card):
     emit({"phase": "bench_done", "seconds": time.perf_counter() - t0})
 
 
+# Steps of the parity phase's train_parity: the tool's card path and the
+# premise of its floor (a deterministic fp32 arm), not its verdict. From the
+# first loss on the bf16 arms part from the fp32 arm by ~1e-2 (BN over 2
+# values at the 1x1x1 bottleneck), and at 60 steps one-ulp floor samples
+# spread 0.049-0.240, so no short run can fail a wrong kernel on val MSE;
+# that rule is read at 300 steps (PARITY_TRAINING_TORCH*.json, PERF.md).
+PARITY_TRAIN_STEPS = 4
+PARITY_STEP = {"conv3d_same_persample": 19, "conv3d_same_persample_transpose": 18,
+               "conv3d_dw_persample": 19}
+PARITY_STEP_S2D = {"conv3d_tapconcat_persample": 1, "conv3d_same_persample": 17,
+                   "conv3d_same_persample_transpose": 17, "conv3d_dw_persample": 18}
+
+
+def parity_phase(card):
+    """The correctness tools at full width: tools_torch.parity_check's card
+    mode on the reference's fp64 golden (mult_chan 32, 12 tasks, x
+    2x1x16x32x32; arms fp32 expert_sum, bf16 auto = the kernels, bf16
+    expert_sum = the rounding floor), then a short tools_torch.train_parity
+    (mult_chan 32, 12 tasks, batch 2, PARITY_TRAIN_STEPS steps, native
+    layout). The golden's rules hold, its planted faults are caught; the
+    golden's kernel arm launched K1-K6 (K2/K3/K4 19/18/19 a native step, K6 1
+    and 17/17/18 an s2d step, K1 19 / 20 on the native / XLA s2d serving
+    routes, K5 7 and K1 12 on the K5 route), the other arms none; the fp32
+    training arm is bit-identical when run twice and the kernel arm launched
+    19/18/19 a step."""
+    t0 = time.perf_counter()
+    rec = parity_check.run(device="cuda")
+    arms = rec["arms"]
+    emit({"phase": "parity_golden", "seconds": time.perf_counter() - t0, "card": rec["card"],
+          "ok": rec["ok"], "summary": rec["summary"],
+          "planted": [{k: r[k] for k in ("arm", "check", "caught", "leaves", "required", "ok")}
+                      for r in rec["planted"]],
+          "arms": {k: {kk: v[kk] for kk in ("routes", "launches", "seconds", "not_run") if kk in v}
+                   for k, v in arms.items()}})
+    check(rec["ok"], "parity: a golden check failed (its FAIL lines are above)")
+    check(rec["card"] == card, f"parity: the record names {rec['card']}")
+    held = {r["arm"] for r in rec["planted"] if r["check"] == "plant_zero"}
+    check(held == {"fp32_expert_sum", "bf16_auto"}, f"parity: faults planted in {held}")
+    k = arms["bf16_auto"]["launches"]
+    want = {"train_fwd_native": {"conv3d_same_persample": 19},
+            "train_fwd_s2d": {"conv3d_tapconcat_persample": 1, "conv3d_same_persample": 17},
+            "loss_and_grad": PARITY_STEP, "loss_and_grad_s2d": PARITY_STEP_S2D,
+            "reparam_fwd": {"conv3d_same": 19}, "reparam_fwd_s2d": {"conv3d_same": 20},
+            "reparam_fwd_k5": {"conv3d_same": 12, "conv3d_dpad": 7}}
+    check(arms["bf16_auto"]["routes"]["reparam_fwd_k5"] == "k5", "parity: the K5 route did not run")
+    for name, w in want.items():
+        check(k[name] == w, f"parity: {name} launched {k[name]}, want {w}")
+    check(set(k["eval_fwd"]) == {"conv3d_same"} and k["eval_fwd"]["conv3d_same"] > 0,
+          f"parity: eval_fwd launched {k['eval_fwd']}")
+    for other in ("fp32_expert_sum", "bf16_expert_sum"):
+        check(not any(arms[other]["launches"].values()),
+              f"parity: {other} launched {arms[other]['launches']}")
+    del rec, arms
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    tp = train_parity.run(steps=PARITY_TRAIN_STEPS, batch=2, mult_chan=32, num_tasks=12,
+                          floor_seeds=0, layout="native", device="cuda", log=print)
+    keys = ("steps", "batch", "mult_chan", "num_tasks", "layout", "card",
+            "reference_deterministic", "max_val_mse_rel_diff",
+            "expert_sum_bf16_max_val_mse_rel_diff", "loss_first10", "train_seconds",
+            "launches_per_step")
+    emit({"phase": "parity_train", "seconds": time.perf_counter() - t1,
+          **{key: tp.get(key) for key in keys}})
+    check(tp["card"] == card, f"parity: train_parity names {tp['card']}")
+    check(tp["reference_deterministic"], "parity: the fp32 reference arm is not deterministic")
+    finite = [v for arm in train_parity.ARMS for v in tp["loss_first10"][arm]
+              + list(tp[f"{arm}_val_mse_per_task"].values())]
+    check(len(finite) == len(train_parity.ARMS) * (PARITY_TRAIN_STEPS + 12)
+          and all(math.isfinite(v) for v in finite), "parity: a loss or val MSE is not finite")
+    check(tp["launches_per_step"]["auto_bf16"] == PARITY_STEP,
+          f"parity: auto_bf16 launched {tp['launches_per_step']['auto_bf16']} a step")
+    check(not tp["launches_per_step"]["reference"]
+          and not tp["launches_per_step"]["expert_sum_bf16"],
+          "parity: an expert_sum arm launched a port kernel")
+    emit({"phase": "parity_done", "seconds": time.perf_counter() - t0})
+
+
 def card_name_and_limit():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2710,6 +2802,7 @@ def main(argv=None):
                   "bank": lambda: bank_phase(len(convs), card),
                   "dp": lambda: dp_phase(len(convs), card),
                   "bench": lambda: bench_phase(card),
+                  "parity": lambda: parity_phase(card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
                   "serve_s2d": lambda: serve_s2d_phase(cfg),
                   "train_s2d_kernel": lambda: train_s2d_kernel_phase(cfg_s2d),
@@ -2764,6 +2857,8 @@ def main(argv=None):
     dp_phase(len(convs), card)
     torch.cuda.empty_cache()
     bench_phase(card)
+    torch.cuda.empty_cache()
+    parity_phase(card)
 
     def entry(name, source, replaces, launches, t):
         return {"name": name, "route": "cuda", "source": f"repmode_tpu_torch/csrc/{source}",

@@ -230,21 +230,24 @@ def test_metrics_and_csvs_match_jax(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter imports every module of the port and of its
-    measurement entry points (``bench_torch``) and gains no jax module,
+    """A fresh interpreter imports every module of the port, of its
+    measurement entry points (``bench_torch``) and of its correctness tools
+    (``tools_torch``) and gains no jax module,
     nothing of repmode_tpu, of bench.py or of tools/, and no pandas (the
     card's machine has none)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "before = set(sys.modules)\n"
-        "import repmode_tpu_torch as pkg, bench_torch as bpkg\n"
-        "names = [m.name for p in (pkg, bpkg)\n"
+        "import repmode_tpu_torch as pkg, bench_torch as bpkg, tools_torch as tpkg\n"
+        "names = [m.name for p in (pkg, bpkg, tpkg)\n"
         "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'repmode_tpu',\n"
         "                                                  'pandas', 'bench', 'tools'))\n"
         "assert len(names) >= 20 and 'bench_torch.serve' in names and 'bench_torch.train' in names\n"
+        "assert {'tools_torch.golden_common', 'tools_torch.parity_check',\n"
+        "        'tools_torch.train_parity'} <= set(names)\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -255,7 +258,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    """No source file of the port or of ``bench_torch`` imports jax, flax,
+    """No source file of the port, of ``bench_torch`` or of ``tools_torch``
+    imports jax, flax,
     repmode_tpu or pandas, even lazily, nor bench.py or tools/; ``native/`` is
     scanned with the rest, and its C++ source is there."""
     import ast
@@ -263,8 +267,8 @@ def test_port_sources_name_no_jax_import():
     root = os.path.join(REPO, "repmode_tpu_torch")
     bad = []
     scanned = set()
-    for dirpath, _, files in [w for top in (root, os.path.join(REPO, "bench_torch"))
-                              for w in os.walk(top)]:
+    tops = (root, os.path.join(REPO, "bench_torch"), os.path.join(REPO, "tools_torch"))
+    for dirpath, _, files in [w for top in tops for w in os.walk(top)]:
         for fn in files:
             if not fn.endswith(".py"):
                 continue
@@ -282,6 +286,8 @@ def test_port_sources_name_no_jax_import():
                                                "bench", "tools")]
     assert not bad, bad
     assert {"bench_torch/serve.py", "bench_torch/train.py", "bench_torch/profile.py"} <= scanned
+    assert {"tools_torch/golden_common.py", "tools_torch/parity_check.py",
+            "tools_torch/train_parity.py"} <= scanned
     assert os.path.isfile(os.path.join(root, "native", "__init__.py"))
     assert os.path.isfile(os.path.join(root, "native", "patchops.cpp"))
 
