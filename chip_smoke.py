@@ -115,6 +115,20 @@ kernels):
                 checkpoint, one metrics.jsonl, the sharded two_phase val
                 volume against fused, K1 19 a predictor batch on each rank);
                 cli.train --num_devices 2 on one card raises JAX's error.
+  scripts       the run scripts (scripts_torch/) as a user types them, each
+                a bash subprocess in a fresh working directory whose python3
+                -m runs report their launch counts: the split scripts and
+                make_dna_dataset.sh on the reference's CSV layout (11 tasks
+                of 7 rows sharing 7 three-channel 32x344x344 CZIs, one with
+                an LZW subblock; dna.csv one image a split: 105 rows in
+                all), integ_dataset.sh (ingest of the 12 tasks, saved),
+                train_and_eval.sh at full width (2 epochs, val each, the
+                best .p and its test pass), only_eval.sh on that .p (the
+                same per-task and final metrics within 1e-5 relative) and
+                train_and_eval.sh with the UNet; K2-K4 19/18/19 a step and
+                K1 19 a val or test volume in each run; the seconds of each
+                script and, from each CLI's run log, when its imports,
+                datasets, training and test pass ended.
   bench         the port's measurement entry points in-process at full width,
                 with short protocols: bench_torch.serve's three routes
                 (native, XLA s2d, K5) on bench.py's 32x624x924 volume, 2
@@ -153,6 +167,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -756,19 +771,24 @@ def train_kernel_phase(convs, phase="train_kernel"):
     return totals
 
 
+# count -> (wrapper in ops/conv3d, its counter attribute)
+LAUNCH_COUNTERS = {
+    "conv3d_same": ("conv3d_same", "launches"),
+    "conv3d_same_persample": ("conv3d_same_persample", "launches"),
+    "conv3d_same_persample_transpose": ("conv3d_same_persample", "transpose_launches"),
+    "conv3d_dw_persample": ("conv3d_dw_persample", "launches"),
+    "conv3d_dpad": ("conv3d_dpad", "launches"),
+    "conv3d_tapconcat_persample": ("conv3d_tapconcat_persample", "launches"),
+}
+
+
 def kernel_counts():
-    return {"conv3d_same": conv3d_same.launches,
-            "conv3d_same_persample": conv3d_same_persample.launches,
-            "conv3d_same_persample_transpose": conv3d_same_persample.transpose_launches,
-            "conv3d_dw_persample": conv3d_dw_persample.launches,
-            "conv3d_dpad": conv3d_dpad.launches,
-            "conv3d_tapconcat_persample": conv3d_tapconcat_persample.launches}
+    return {k: getattr(getattr(conv3d_mod, fn), attr) for k, (fn, attr) in LAUNCH_COUNTERS.items()}
 
 
 def reset_counts():
-    conv3d_same.launches = conv3d_dw_persample.launches = conv3d_dpad.launches = 0
-    conv3d_same_persample.launches = conv3d_same_persample.transpose_launches = 0
-    conv3d_tapconcat_persample.launches = 0
+    for fn, attr in LAUNCH_COUNTERS.values():
+        setattr(getattr(conv3d_mod, fn), attr, 0)
 
 
 def param_report(net, init):
@@ -1675,8 +1695,9 @@ def write_czi(path, data, compression=0):
     """A ZISRAW file of (C, Z, Y, X) uint16 data, one subblock a channel, in
     the layout of tests/test_czi.py:write_czi (header, metadata, subblocks,
     directory; dimension entries X first); compression 2 stores each
-    subblock TIFF-LZW-compressed."""
+    subblock TIFF-LZW-compressed, a sequence gives each channel's."""
     c, z, y, x = data.shape
+    codes = list(compression) if isinstance(compression, (list, tuple)) else [compression] * c
     xml = (b'<ImageDocument><Metadata><Scaling><Items><Distance Id="X"><Value>1.08e-07'
            b"</Value></Distance></Items></Scaling></Metadata></ImageDocument>")
     meta = _czi_segment(b"ZISRAWMETADATA", struct.pack("<ii", len(xml), 0) + b"\0" * 248 + xml)
@@ -1684,11 +1705,11 @@ def write_czi(path, data, compression=0):
     entries, subblocks = [], []
     for ci in range(c):
         dims = [(b"X", 0, x), (b"Y", 0, y), (b"Z", 0, z), (b"C", ci, 1)]
-        entry = (b"DV" + struct.pack("<iqii", 1, pos, 0, compression) + b"\0" * 6
+        entry = (b"DV" + struct.pack("<iqii", 1, pos, 0, codes[ci]) + b"\0" * 6
                  + struct.pack("<i", len(dims))
                  + b"".join(struct.pack("<4siifi", n, s, k, 0.0, k) for n, s, k in dims))
         raw = np.ascontiguousarray(data[ci], "<u2").tobytes()
-        if compression == 2:
+        if codes[ci] == 2:
             raw = lzw_encode(raw)
         inline = struct.pack("<iiq", 0, 0, len(raw)) + entry
         inline += b"\0" * (max(256, len(entry) + 16) - len(inline))
@@ -2598,6 +2619,258 @@ def dp_phase(num_convs, card, num_tasks=4, steps=3):
     emit({"phase": "dp_done", "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------- the run scripts
+
+SCRIPT_TASKS = tuple(t for t in DEFAULT_DATASETS if t != "dna")  # the split scripts' 11
+# rows a task CSV, one an image, every image in every task's CSV: 5 train / 2
+# test, then 4 train / 1 val (the fewest rows that leave every split a row)
+SCRIPT_ROWS = 7
+SCRIPT_LZW_IMAGE = 3  # its signal subblock, which every row of it reads, is LZW
+SCRIPT_EPOCHS = 2
+SPLITS = ("train", "val", "test")
+
+# Run in place of "python3 -m <module> ..." by the scripts phase's python3:
+# the module as -m runs it, then its kernel launch counts as one JSON line
+# appended to $CHIP_SMOKE_LAUNCHES at exit. @COUNTERS@ is LAUNCH_COUNTERS.
+LAUNCH_HOOK = '''\
+import atexit, json, os, runpy, sys
+
+COUNTERS = @COUNTERS@
+module = sys.argv[2]
+
+
+def dump():
+    conv3d = sys.modules.get("repmode_tpu_torch.ops.conv3d")
+    counts = {k: getattr(getattr(conv3d, fn), attr) if conv3d else 0
+              for k, (fn, attr) in COUNTERS.items()}
+    with open(os.environ["CHIP_SMOKE_LAUNCHES"], "a") as f:
+        f.write(json.dumps({"module": module, "launches": counts}) + "\\n")
+
+
+sys.argv[:] = [module, *sys.argv[3:]]
+sys.path[0] = os.getcwd()
+atexit.register(dump)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+'''
+
+
+def write_scripts_dataset(root):
+    """The reference's download layout under root/data: csvs/<task>.csv for
+    the split scripts' 11 tasks (signal channel 0, structure 1) in the
+    reference's schema with 'data'-prefixed paths, and SCRIPT_ROWS
+    three-channel (signal, structure, DNA) uint16 CZIs of INGEST_RAW that
+    every task shares, as the reference's dna task shares the other tasks'
+    images."""
+    rng = np.random.default_rng(SEED + 50)
+    zz, yy, xx = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in INGEST_RAW), indexing="ij")
+    os.makedirs(os.path.join(root, "data", "csvs"))
+    for k in range(SCRIPT_ROWS):
+        blob = np.sin(xx / (9.0 + k)) * np.cos(yy / (7.0 + k)) + zz / INGEST_RAW[0]
+        sig = 1000 + 300 * blob + rng.normal(0, 30, blob.shape)
+        structure = 400 + 250 * np.maximum(blob, 0) ** 2 + rng.normal(0, 20, blob.shape)
+        dna = 600 + 200 * np.abs(np.sin(3 * blob)) + rng.normal(0, 20, blob.shape)
+        raw = np.stack([sig, structure, dna]).clip(0, 65535).astype(np.uint16)
+        write_czi(os.path.join(root, "data", f"cell_{k}.czi"), raw,
+                  compression=(2, 0, 0) if k == SCRIPT_LZW_IMAGE else 0)
+    for task in SCRIPT_TASKS:
+        write_task_csv(root, task, range(SCRIPT_ROWS), channel_target=1)
+
+
+def write_task_csv(root, task, images, channel_target):
+    with open(os.path.join(root, "data", "csvs", f"{task}.csv"), "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(INGEST_CSV_COLUMNS)
+        for k in images:
+            w.writerow([f"data/cell_{k}.czi", 0, channel_target, task, ""])
+
+
+def metric_tables(metrics_dir, exp):
+    """{(table, row, column): value} of an exp's spec_ and final_ CSVs."""
+    out = {}
+    for table in ("spec", "final"):
+        with open(os.path.join(metrics_dir, f"{table}_{exp}.csv"), newline="") as f:
+            for i, row in enumerate(csv.DictReader(f)):
+                for k, v in row.items():
+                    out[table, i, k] = v if k == "dataset" else float(v)
+    return out
+
+
+LOG_LINE = re.compile(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) - (\[\w+\])")
+TIMELINE_MARKS = {"[CONFIG]": "logging", "[DATASET]": "datasets", "[TRAIN]": "trained",
+                  "[VAL]": "trained", "[TEST]": "tested"}
+
+
+def log_timeline(log, wall0):
+    """Seconds from a CLI run's start (wall0) to the last line of each kind
+    in its run log: logging (its first line: imports done), datasets
+    (loaded, ingested or saved), trained (the last epoch or val pass),
+    tested."""
+    marks = {}
+    for line in log.splitlines():
+        m = LOG_LINE.match(line)
+        if m and m.group(2) in TIMELINE_MARKS:
+            stamp = time.mktime(time.strptime(m.group(1)[:19], "%Y-%m-%d %H:%M:%S"))
+            key = TIMELINE_MARKS[m.group(2)]
+            if key != "logging" or key not in marks:
+                marks[key] = round(stamp + int(m.group(1)[20:]) / 1e3 - wall0, 3)
+    return marks
+
+
+def scripts_phase(num_convs, card):
+    """The user flow through scripts_torch/ on the card, each script a bash
+    subprocess in a fresh working directory (this interpreter first on PATH
+    as python3, through LAUNCH_HOOK): the split scripts and the dna task on
+    the reference's CSV layout, integ_dataset.sh (CZI ingest of the 12
+    tasks, saved, the test pass on the initial weights), train_and_eval.sh
+    at full width (SCRIPT_EPOCHS epochs, val each, the best .p, its test
+    pass), only_eval.sh on that .p, and train_and_eval.sh with the UNet.
+    Every script exits 0; every split CSV has rows; the 12 tasks x 3 splits
+    are in the saved manifests; every epoch's loss is finite; the best .p
+    loads strictly; only_eval.sh's metrics equal the training run's test
+    pass within 1e-5 relative; each run's launches are the path's: K2/K3/K4
+    19/18/19 a step, K1 19 a val or test volume (one patch each). Each
+    script's seconds, and each CLI run's timeline from its run log."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scripts_")
+    seconds, launches, timeline = {}, {}, {}
+
+    def run(name, rel, *args, exp=None):
+        out = os.path.join(tmp, f"launches_{name}.jsonl")
+        t0, wall0 = time.perf_counter(), time.time()
+        res = subprocess.run(["bash", os.path.join(root, "scripts_torch", rel), *args], cwd=work,
+                             env=dict(env, CHIP_SMOKE_LAUNCHES=out), capture_output=True,
+                             text=True, timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        if res.returncode:
+            print(res.stdout[-6000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
+        check(res.returncode == 0, f"scripts: {rel} {' '.join(args)} exited {res.returncode}")
+        if exp is not None:
+            with open(os.path.join(work, "exps", exp, "logs", f"run_{exp}.log")) as f:
+                timeline[name] = log_timeline(f.read(), wall0)
+        if os.path.exists(out):
+            with open(out) as f:
+                lines = [json.loads(line) for line in f]
+            check(len(lines) == 1, f"scripts: {name} ran {len(lines)} python3 -m processes")
+            launches[name] = lines[0]["launches"]
+
+    try:
+        work, bin_dir = os.path.join(tmp, "work"), os.path.join(tmp, "bin")
+        os.makedirs(bin_dir)
+        hook = os.path.join(tmp, "launch_hook.py")
+        with open(hook, "w") as f:
+            f.write(LAUNCH_HOOK.replace("@COUNTERS@", json.dumps(LAUNCH_COUNTERS)))
+        for name in ("python", "python3"):
+            with open(os.path.join(bin_dir, name), "w") as f:
+                f.write(f'#!/bin/sh\nif [ "$1" = "-m" ]; then exec "{sys.executable}" "{hook}" '
+                        f'"$@"; fi\nexec "{sys.executable}" "$@"\n')
+            os.chmod(os.path.join(bin_dir, name), 0o755)
+        env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+                   WANDB_MODE="disabled")
+        t0 = time.perf_counter()
+        write_scripts_dataset(work)
+        seconds["write_dataset"] = time.perf_counter() - t0
+        with CziFile(os.path.join(work, "data", f"cell_{SCRIPT_LZW_IMAGE}.czi")) as czi:
+            check([e.compression for e in czi.entries] == [2, 0, 0], "scripts: no LZW subblock")
+
+        # ---- the splits and the dna task. dna.csv (DNA channel 2) lists the
+        # first image of each split: the reference's lists nearly every
+        # image, which here, at 54/6/20 samples from 11 tasks sharing 7
+        # images, would make the dna task 70 of the 147 rows to ingest
+        for name in ("split_train_set", "split_val_set"):
+            run(name, f"dataset/{name}.sh")
+        first = []
+        for split in SPLITS:
+            with open(os.path.join(work, "data", "csvs", SCRIPT_TASKS[0], f"{split}.csv")) as f:
+                path = next(csv.DictReader(f))["path_czi"]
+            first.append(int(path[len("data/cell_"):-len(".czi")]))
+        write_task_csv(work, "dna", first, channel_target=2)
+        run("make_dna_dataset", "dataset/make_dna_dataset.sh")
+        rows = {s: 0 for s in SPLITS}
+        for task in DEFAULT_DATASETS:
+            for split in SPLITS:
+                with open(os.path.join(work, "data", "csvs", task, f"{split}.csv")) as f:
+                    n = sum(1 for _ in csv.reader(f)) - 1
+                check(n > 0, f"scripts: {task}/{split}.csv has no rows")
+                rows[split] += n
+
+        # ---- ingest of every row, saved; the test pass on the initial weights
+        run("integ_dataset", "dataset/integ_dataset.sh", "--num_workers",
+            str(len(os.sched_getaffinity(0))), exp="integ_dataset")
+        for split in SPLITS:
+            with open(os.path.join(work, "data", "all_data", f"{split}.manifest.json")) as f:
+                vols = json.load(f)["volumes"]
+            check(len(vols) == rows[split]
+                  and {v["dataset"] for v in vols} == set(DEFAULT_DATASETS)
+                  and all(os.path.exists(os.path.join(work, "data", "all_data", v["file"]))
+                          for v in vols), f"scripts: the saved {split} manifest")
+
+        # ---- train at full width, val each epoch, the best .p's test pass
+        run("train_and_eval", "run/train_and_eval.sh", "RepMode", "exps/test",
+            "--num_epochs", str(SCRIPT_EPOCHS), "--interval_val", "1", exp="test")
+        exp = os.path.join(work, "exps", "test")
+        with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [x["loss/epoch"] for x in lines if "loss/epoch" in x]
+        check(len(losses) == SCRIPT_EPOCHS and all(math.isfinite(v) for v in losses)
+              and sum("metric_val/MSE" in x for x in lines) == SCRIPT_EPOCHS,
+              f"scripts: metrics.jsonl holds losses {losses}")
+        best = os.path.join(exp, "checkpoints", "model_best_test.p")
+        loaded = load_reference_checkpoint(best)
+        check(tuple(loaded["adopted_datasets"]) == DEFAULT_DATASETS,
+              f"scripts: the .p holds tasks {loaded['adopted_datasets']}")
+        net = build_model(Config(model=ModelConfig(train_s2d=False)), device="cuda")
+        net.load_state_dict(loaded["state_dict"], strict=True)
+        del net, loaded
+        torch.cuda.empty_cache()
+
+        # ---- evaluation only, from the default checkpoint
+        run("only_eval", "run/only_eval.sh", "RepMode", "exps/eval", exp="eval")
+        trained = metric_tables(os.path.join(exp, "metrics"), "test")
+        evaluated = metric_tables(os.path.join(work, "exps", "eval", "metrics"), "eval")
+        check(trained.keys() == evaluated.keys(), "scripts: the metric tables differ in shape")
+        max_rel = 0.0
+        for key, a in trained.items():
+            b = evaluated[key]
+            if key[2] == "dataset":
+                check(a == b, f"scripts: metric row {key}: {a} vs {b}")
+            else:
+                check(math.isfinite(a) and math.isfinite(b), f"scripts: metric {key} {a} {b}")
+                max_rel = max(max_rel, abs(a - b) / max(abs(a), 1e-30))
+        print(f"scripts: only_eval vs train_and_eval's test pass, largest relative "
+              f"difference {max_rel:.3e}", file=sys.stderr)
+        check(max_rel <= 1e-5, f"scripts: only_eval's metrics differ by {max_rel:.3e} relative")
+
+        # ---- the UNet baseline through the same script
+        run("train_and_eval_unet", "run/train_and_eval.sh", "UNet", "exps/unet",
+            "--num_epochs", "1", "--interval_val", "1", exp="unet")
+        unet = metric_tables(os.path.join(work, "exps", "unet", "metrics"), "unet")
+        check(math.isfinite(unet["final", 0, "MSE"]), "scripts: the UNet's test MSE")
+
+        # ---- each run's launches: the path's kernels and no others
+        train_n = rows["train"]
+        steps = SCRIPT_EPOCHS * -(-train_n // 8)
+        step = {"conv3d_same_persample": num_convs, "conv3d_same_persample_transpose": num_convs - 1,
+                "conv3d_dw_persample": num_convs}
+        want = {"integ_dataset": {"conv3d_same": num_convs * rows["test"]},
+                "train_and_eval": {"conv3d_same": num_convs * (SCRIPT_EPOCHS * rows["val"]
+                                                               + rows["test"]),
+                                   **{k: v * steps for k, v in step.items()}},
+                "only_eval": {"conv3d_same": num_convs * rows["test"]},
+                "train_and_eval_unet": {"conv3d_same": num_convs * (rows["val"] + rows["test"])}}
+        for name, w in want.items():
+            got = {k: v for k, v in launches[name].items() if v}
+            check(got == w, f"scripts: {name} launched {got}, want {w}")
+        emit({"phase": "scripts", "card": card, "rows": rows, "images": SCRIPT_ROWS,
+              "raw_shape": list(INGEST_RAW), "seconds": seconds, "steps": steps,
+              "train_loss": losses, "test_mse": trained["final", 0, "MSE"],
+              "only_eval_max_rel_diff": max_rel, "unet_test_mse": unet["final", 0, "MSE"],
+              "launches": launches, "timeline": timeline,
+              "phase_seconds": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 BENCH_TRAIN_PAIRS = [("native", "auto"), ("s2d", "auto"), ("native", "expert_sum")]
 
 
@@ -2801,6 +3074,7 @@ def main(argv=None):
                   "unet": lambda: unet_phase(len(convs), card),
                   "bank": lambda: bank_phase(len(convs), card),
                   "dp": lambda: dp_phase(len(convs), card),
+                  "scripts": lambda: scripts_phase(len(convs), card),
                   "bench": lambda: bench_phase(card),
                   "parity": lambda: parity_phase(card),
                   "s2d_kernel": lambda: s2d_kernel_phase(cfg),
@@ -2855,6 +3129,8 @@ def main(argv=None):
     train_s2d_check_phase(num_tasks=4)
     torch.cuda.empty_cache()
     dp_phase(len(convs), card)
+    torch.cuda.empty_cache()
+    scripts_phase(len(convs), card)
     torch.cuda.empty_cache()
     bench_phase(card)
     torch.cuda.empty_cache()
