@@ -17,6 +17,10 @@ the summary is one JSON line:
   the port's own kernels (K1-K6, by the symbols of ``csrc/*.cu``) and by the
   library and PyTorch kernels around them.
 
+A span (``record_function``, the schedule's step marks) also shows on the
+device's timeline as an annotation over the kernels launched inside it: no
+device column counts one as a kernel.
+
 On the CPU there is no device trace: every device column reads
 "not measured", and the summary lists the host ops with the most self time.
 """
@@ -103,6 +107,13 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def _is_kernel(e) -> bool:
+    """A device activity: no host op, no span's annotation, no step mark."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep"))
+
+
 def summarize(prof, wall_ms: float, dev: DeviceRecord, calls: int, trace_path: str) -> dict:
     events = prof.key_averages()
     rec = {"trace": trace_path, "calls": calls, "wall_ms": wall_ms, "device_kind": dev.kind,
@@ -115,15 +126,12 @@ def summarize(prof, wall_ms: float, dev: DeviceRecord, calls: int, trace_path: s
                 "buckets": {label: {"ms": NOT_MEASURED, "launches": NOT_MEASURED}
                             for label in [b for b, _ in BUCKETS] + [OTHER]},
                 "top_host_ops": [[k[:100], ms, n] for k, ms, n in host[:TOP]]}
-    # device events only (a CPU op's device time repeats its kernels'), less
-    # the schedule's own step annotation on the device's timeline
+    # device activities only (a CPU op's device time repeats its kernels')
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")), key=lambda r: -r[1])
+                      if _is_kernel(e)), key=lambda r: -r[1])
     # busy: the union of the kernels' intervals (kernels on two streams overlap)
     busy = busy_ms((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith("ProfilerStep"))
+                   if _is_kernel(e))
     buckets = {label: {"ms": 0.0, "launches": 0} for label in [b for b, _ in BUCKETS] + [OTHER]}
     for name, ms, n in kernels:
         b = buckets[bucket(name)]

@@ -314,8 +314,10 @@ def profiled_events(fn, calls=1):
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
     # device-side events only (a CPU op's device time repeats its kernels'),
-    # less the schedule's own step annotation on the device's timeline
+    # less the annotations of spans (the program's rm.*) and of the
+    # schedule's own step on the device's timeline
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith("ProfilerStep")], wall_ms
 
 

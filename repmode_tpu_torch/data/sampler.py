@@ -24,6 +24,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 
 from repmode_tpu_torch.data.store import VolumeStore
+from repmode_tpu_torch.utils.timing import span
 
 
 def draw_crop_flip(vol_shape, patch_size: Tuple[int, int, int], rng: np.random.Generator,
@@ -117,8 +118,10 @@ class PatchSampler:
             tail = chunks[-1]
             chunks[-1] = np.concatenate([tail, self.rng.choice(order, size=b - len(tail))])
         if self.prefetch <= 0:
-            for c in chunks:
-                yield self._make_batch(c)
+            for i, c in enumerate(chunks):
+                with span("sampler.wait", i):
+                    batch = self._make_batch(c)
+                yield batch
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -133,8 +136,9 @@ class PatchSampler:
 
         th = threading.Thread(target=producer, daemon=True)
         th.start()
-        while True:
-            item = q.get()
+        for i in range(len(chunks)):  # the sentinel comes early only if the producer failed
+            with span("sampler.wait", i):
+                item = q.get()
             if item is sentinel:
                 break
             yield item

@@ -38,6 +38,7 @@ from repmode_tpu_torch.infer.tiling import compute_patch_starts
 from repmode_tpu_torch.models.reparam import make_inference
 from repmode_tpu_torch.ops.gaussian import gaussian_importance_map
 from repmode_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
+from repmode_tpu_torch.utils.timing import span
 
 MODES = ("fused", "two_phase")
 
@@ -79,6 +80,8 @@ class TiledPredictor:
         self._gauss = torch.from_numpy(
             gaussian_importance_map(self.patch_size, cfg.eval.gaussian_sigma_scale)
         ).to(self.device)
+        self._calls = 0    # volumes predicted, and batches gathered in this volume
+        self._gathered = 0
 
     def grid(self, vol_shape: Tuple[int, int, int]):
         """Padded start grid (NB, B, 3), validity mask (NB, B) and patch count."""
@@ -100,40 +103,51 @@ class TiledPredictor:
     def _predict(self, plain_params, vol, st_b) -> torch.Tensor:
         """One batch of patches -> (B, pd, ph, pw) fp32 predictions."""
         pd, ph, pw = self.patch_size
-        patches = torch.stack([vol[d:d + pd, h:h + ph, w:w + pw] for d, h, w in st_b])
+        with span("predict.stitch", self._gathered):
+            patches = torch.stack([vol[d:d + pd, h:h + ph, w:w + pw] for d, h, w in st_b])
+        self._gathered += 1
         return self._forward(plain_params, patches[..., None])[..., 0].float()
 
-    def _accumulate(self, pred_sum, weight_sum, preds, st_b, valid_b) -> None:
-        """Add one batch's weighted predictions into the sums, in order."""
+    def _accumulate(self, pred_sum, weight_sum, preds, st_b, valid_b, b: int) -> None:
+        """Add batch b's weighted predictions into the sums, in order."""
         pd, ph, pw = self.patch_size
-        for (d, h, w), v, pred in zip(st_b, valid_b, preds):
-            wgt = self._gauss * v
-            pred_sum[d:d + pd, h:h + ph, w:w + pw] += pred * wgt
-            weight_sum[d:d + pd, h:h + ph, w:w + pw] += wgt
+        with span("predict.stitch", b):
+            for (d, h, w), v, pred in zip(st_b, valid_b, preds):
+                wgt = self._gauss * v
+                pred_sum[d:d + pd, h:h + ph, w:w + pw] += pred * wgt
+                weight_sum[d:d + pd, h:h + ph, w:w + pw] += wgt
 
     @torch.no_grad()
     def __call__(self, plain_params, volume) -> torch.Tensor:
         """volume: (D,H,W) array or tensor -> stitched (D,H,W) fp32 on the device."""
+        self._calls += 1
+        self._gathered = 0
+        with span("predict", self._calls):
+            return self._call(plain_params, volume)
+
+    def _call(self, plain_params, volume) -> torch.Tensor:
         if not torch.is_tensor(volume):
             volume = torch.from_numpy(np.asarray(volume, np.float32))
-        vol = volume.to(self.device, torch.float32)
+        with span("predict.h2d"):
+            vol = volume.to(self.device, torch.float32)
         vol_shape = tuple(int(s) for s in vol.shape)
         starts, valid, _ = self.grid(vol_shape)
         starts, valid = starts.tolist(), valid.tolist()
         sums = torch.zeros((2, *vol_shape), dtype=torch.float32, device=self.device)
         pred_sum, weight_sum = sums  # views: one all-reduce takes both
         if self.mode == "fused":
-            for st_b, valid_b in zip(starts, valid):
+            for b, (st_b, valid_b) in enumerate(zip(starts, valid)):
                 preds = self._predict(plain_params, vol, st_b)
-                self._accumulate(pred_sum, weight_sum, preds, st_b, valid_b)
+                self._accumulate(pred_sum, weight_sum, preds, st_b, valid_b, b)
         else:
             if self.mesh is not None:  # this rank's contiguous block of batches
                 per = len(starts) // self.mesh.size
                 block = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
                 starts, valid = starts[block], valid[block]
             preds = torch.stack([self._predict(plain_params, vol, st_b) for st_b in starts])
-            for preds_b, st_b, valid_b in zip(preds, starts, valid):
-                self._accumulate(pred_sum, weight_sum, preds_b, st_b, valid_b)
+            for b, (preds_b, st_b, valid_b) in enumerate(zip(preds, starts, valid)):
+                self._accumulate(pred_sum, weight_sum, preds_b, st_b, valid_b, b)
             if self.mesh is not None:
                 all_reduce_sum_(self.mesh, sums)
-        return pred_sum / weight_sum
+        with span("predict.stitch", len(starts)):
+            return pred_sum / weight_sum

@@ -54,6 +54,7 @@ from repmode_tpu_torch.ops.s2d import (
     upsample_s2d_to_s2d,
     upsample_to_s2d,
 )
+from repmode_tpu_torch.utils.timing import span
 
 Params = Dict[str, Any]
 StateDict = Mapping[str, torch.Tensor]
@@ -413,12 +414,12 @@ def _make_plain_inference(cfg) -> tuple:
     nets: Dict[torch.device, torch.nn.Module] = {}
 
     def prepare(state: StateDict, task_id: int) -> torch.nn.Module:
-        del task_id
-        dev = next(iter(state.values())).device
-        if dev not in nets:
-            nets[dev] = build_model(cfg, device=dev).eval()
-        nets[dev].load_state_dict(state, strict=True)
-        return nets[dev]
+        with span("reparam.prepare", task_id):
+            dev = next(iter(state.values())).device
+            if dev not in nets:
+                nets[dev] = build_model(cfg, device=dev).eval()
+            nets[dev].load_state_dict(state, strict=True)
+            return nets[dev]
 
     def forward(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
@@ -449,8 +450,9 @@ def make_inference(cfg) -> tuple:
     levels = default_s2d_levels(cfg.model) if cfg.eval.s2d else ()
 
     def prepare(state: StateDict, task_id: int) -> Params:
-        p = reparameterize(state, cfg.model, num_tasks, task_id)
-        return to_s2d_plain(p, cfg.model, levels) if levels else p
+        with span("reparam.prepare", task_id):
+            p = reparameterize(state, cfg.model, num_tasks, task_id)
+            return to_s2d_plain(p, cfg.model, levels) if levels else p
 
     use_dpad = bool(levels) and cfg.eval.pallas_conv
     if use_dpad and not pallas_geometry_ok(cfg.model):

@@ -47,6 +47,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_tapconcat_persample,
 )
 from repmode_tpu_torch.ops.s2d import box_pool_s2d, s2d_conv1_kernel, s2d_conv_kernel
+from repmode_tpu_torch.utils.timing import span
 
 
 class ExpertKernels(NamedTuple):
@@ -135,20 +136,21 @@ def mode_conv_expert_sum(
     in JAX, round their outputs to the compute dtype; without it they run
     K1 on the card.
     """
-    xa = x.to(torch.promote_types(x.dtype, torch.float32))
-    pooled3 = avg_pool_same(xa, 3)
-    pooled5 = avg_pool_same(xa, 5)
-    ys = [
-        _expert_conv(inp, w, compute_dtype)
-        for inp, w in (
-            (x, ek.w5), (x, ek.w3), (x, ek.w1), (pooled3, ek.wa3), (pooled5, ek.wa5)
-        )
-    ]
-    gf = g.to(ys[0].dtype)
-    out = gf[:, 0, None, None, None, :] * ys[0]
-    for e in range(1, 5):
-        out = out + gf[:, e, None, None, None, :] * ys[e]
-    return out
+    with span("mode.conv"):
+        xa = x.to(torch.promote_types(x.dtype, torch.float32))
+        pooled3 = avg_pool_same(xa, 3)
+        pooled5 = avg_pool_same(xa, 5)
+        ys = [
+            _expert_conv(inp, w, compute_dtype)
+            for inp, w in (
+                (x, ek.w5), (x, ek.w3), (x, ek.w1), (pooled3, ek.wa3), (pooled5, ek.wa5)
+            )
+        ]
+        gf = g.to(ys[0].dtype)
+        out = gf[:, 0, None, None, None, :] * ys[0]
+        for e in range(1, 5):
+            out = out + gf[:, e, None, None, None, :] * ys[e]
+        return out
 
 
 class MergedConvPerSample(torch.autograd.Function):
@@ -170,14 +172,15 @@ class MergedConvPerSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wn = ctx.saved_tensors
-        dyc = dy.to(x.dtype)
-        dx = dwn = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3d_same_persample(dyc, wn, transpose_taps=True, compute_dtype=x.dtype,
-                                       out_dtype=x.dtype)
-        if ctx.needs_input_grad[1]:
-            kd, kh, kw = wn.shape[1:4]
-            dwn = conv3d_dw_persample(x, dyc, kd, kh, kw, compute_dtype=x.dtype).to(wn.dtype)
+        with span("mode.conv"):
+            dyc = dy.to(x.dtype)
+            dx = dwn = None
+            if ctx.needs_input_grad[0]:
+                dx = conv3d_same_persample(dyc, wn, transpose_taps=True, compute_dtype=x.dtype,
+                                           out_dtype=x.dtype)
+            if ctx.needs_input_grad[1]:
+                kd, kh, kw = wn.shape[1:4]
+                dwn = conv3d_dw_persample(x, dyc, kd, kh, kw, compute_dtype=x.dtype).to(wn.dtype)
         return dx, dwn
 
 
@@ -198,11 +201,13 @@ def mode_conv_merged_persample(
     (fp32 floor when None), then ``MergedConvPerSample``. x: (N,D,H,W,Ci),
     g: (N,E,Co) -> (N,D,H,W,Co) in the compute dtype.
     """
-    bank = expert_bank(ek, kernel_size)
-    gdt = torch.promote_types(g.dtype, torch.float32)
-    wn = torch.einsum("neo,edhwio->ndhwio", g.to(gdt), bank.to(gdt))
+    with span("mode.merge"):
+        bank = expert_bank(ek, kernel_size)
+        gdt = torch.promote_types(g.dtype, torch.float32)
+        wn = torch.einsum("neo,edhwio->ndhwio", g.to(gdt), bank.to(gdt))
     cdt = compute_dtype or torch.promote_types(x.dtype, torch.float32)
-    return MergedConvPerSample.apply(x.to(cdt), wn.to(cdt))
+    with span("mode.conv"):
+        return MergedConvPerSample.apply(x.to(cdt), wn.to(cdt))
 
 
 def mode_conv_single(
@@ -284,36 +289,37 @@ def mode_conv_expert_sum_s2d_domain(
     expert sum, the pools run in the accumulation dtype, each conv is an
     ``_expert_conv``, and the combine is fp32.
     """
-    cs = tuple(channel_sizes) if channel_sizes else (ek.w5.shape[3],)
-    ones3, ones5 = _pool_ones(3, ek.wa3), _pool_ones(5, ek.wa5)
+    with span("mode.conv"):
+        cs = tuple(channel_sizes) if channel_sizes else (ek.w5.shape[3],)
+        ones3, ones5 = _pool_ones(3, ek.wa3), _pool_ones(5, ek.wa5)
 
-    def cv(inp, w):
-        return _expert_conv(inp, w, compute_dtype)
+        def cv(inp, w):
+            return _expert_conv(inp, w, compute_dtype)
 
-    ys = [cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w5, cs)),
-          cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w3, cs)),
-          cv(x2, _split_s2d_kernel(s2d_conv1_kernel, ek.w1, cs))]
-    if 4 * min(cs) >= 256:
-        xa = x2.to(torch.promote_types(x2.dtype, torch.float32))
+        ys = [cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w5, cs)),
+              cv(x2, _split_s2d_kernel(s2d_conv_kernel, ek.w3, cs)),
+              cv(x2, _split_s2d_kernel(s2d_conv1_kernel, ek.w1, cs))]
+        if 4 * min(cs) >= 256:
+            xa = x2.to(torch.promote_types(x2.dtype, torch.float32))
 
-        def box(k):  # the phase-major layout is per s2d segment
-            parts, off = [], 0
-            for c in cs:
-                parts.append(box_pool_s2d(xa[..., off:off + 4 * c], k))
-                off += 4 * c
-            return torch.cat(parts, dim=-1)
+            def box(k):  # the phase-major layout is per s2d segment
+                parts, off = [], 0
+                for c in cs:
+                    parts.append(box_pool_s2d(xa[..., off:off + 4 * c], k))
+                    off += 4 * c
+                return torch.cat(parts, dim=-1)
 
-        for k, w in ((3, ek.wa3), (5, ek.wa5)):
-            ys.append(cv(box(k), _split_s2d_kernel(
-                lambda v, k=k: s2d_conv1_kernel(v * (1.0 / k**3)), w, cs)))
-    else:
-        ys.append(cv(x2, _split_s2d_kernel(lambda w: s2d_conv_kernel(ones3 * w), ek.wa3, cs)))
-        ys.append(cv(x2, _split_s2d_kernel(lambda w: s2d_conv_kernel(ones5 * w), ek.wa5, cs)))
-    g4 = _gate4(g).to(ys[0].dtype)
-    out = g4[:, 0, None, None, None, :] * ys[0]
-    for e in range(1, 5):
-        out = out + g4[:, e, None, None, None, :] * ys[e]
-    return out
+            for k, w in ((3, ek.wa3), (5, ek.wa5)):
+                ys.append(cv(box(k), _split_s2d_kernel(
+                    lambda v, k=k: s2d_conv1_kernel(v * (1.0 / k**3)), w, cs)))
+        else:
+            ys.append(cv(x2, _split_s2d_kernel(lambda w: s2d_conv_kernel(ones3 * w), ek.wa3, cs)))
+            ys.append(cv(x2, _split_s2d_kernel(lambda w: s2d_conv_kernel(ones5 * w), ek.wa5, cs)))
+        g4 = _gate4(g).to(ys[0].dtype)
+        out = g4[:, 0, None, None, None, :] * ys[0]
+        for e in range(1, 5):
+            out = out + g4[:, e, None, None, None, :] * ys[e]
+        return out
 
 
 class TapConcatConvPerSample(torch.autograd.Function):
@@ -337,13 +343,15 @@ class TapConcatConvPerSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wn = ctx.saved_tensors
-        dyc = dy.to(x.dtype)
-        dx = dwn = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3d_same_persample(dyc, wn, transpose_taps=True, compute_dtype=x.dtype,
-                                       out_dtype=x.dtype)
-        if ctx.needs_input_grad[1]:
-            dwn = conv3d_dw_persample(x, dyc, *TAPCONCAT_TAPS, compute_dtype=x.dtype).to(wn.dtype)
+        with span("mode.conv"):
+            dyc = dy.to(x.dtype)
+            dx = dwn = None
+            if ctx.needs_input_grad[0]:
+                dx = conv3d_same_persample(dyc, wn, transpose_taps=True, compute_dtype=x.dtype,
+                                           out_dtype=x.dtype)
+            if ctx.needs_input_grad[1]:
+                dwn = conv3d_dw_persample(x, dyc, *TAPCONCAT_TAPS,
+                                          compute_dtype=x.dtype).to(wn.dtype)
         return dx, dwn
 
 
@@ -367,12 +375,14 @@ def mode_conv_merged_s2d(
     its 128-lane guard is the TPU's. x2: (N,D,h',w',4*sum(channel_sizes)),
     g: (N,E,Co) -> (N,D,h',w',4Co) in the compute dtype.
     """
-    bank = s2d_expert_bank(ek, channel_sizes)
-    g4 = _gate4(g)
-    wn = torch.einsum("neo,edhwio->ndhwio", g4, bank.to(g4.dtype))
+    with span("mode.merge"):
+        bank = s2d_expert_bank(ek, channel_sizes)
+        g4 = _gate4(g)
+        wn = torch.einsum("neo,edhwio->ndhwio", g4, bank.to(g4.dtype))
     cdt = compute_dtype or torch.promote_types(x2.dtype, torch.float32)
     conv = TapConcatConvPerSample if x2.shape[-1] == 4 else MergedConvPerSample
-    return conv.apply(x2.to(cdt), wn.to(cdt))
+    with span("mode.conv"):
+        return conv.apply(x2.to(cdt), wn.to(cdt))
 
 
 def _tap_sum(z: torch.Tensor, kh: int, kw: int, co: int) -> torch.Tensor:
@@ -409,17 +419,19 @@ def mode_conv_tapmajor_merged_s2d(
     accumulation dtype; then the 3x3 H/W shifted adds of ``_tap_sum``.
     x2: (N,D,h',w',4Ci), g: (N,E,Co) -> (N,D,h',w',4Co) fp32 (fp64 stays).
     """
-    bank = s2d_expert_bank(ek, channel_sizes)
+    with span("mode.merge"):
+        bank = s2d_expert_bank(ek, channel_sizes)
+        g4 = _gate4(g)
+        wt = torch.einsum("neo,edhwio->ndhwio", g4, bank.to(g4.dtype))
     _, kd, kh, kw, ci4, co4 = bank.shape
     n, d = x2.shape[:2]
-    g4 = _gate4(g)
-    wt = torch.einsum("neo,edhwio->ndhwio", g4, bank.to(g4.dtype))
     cdt = compute_dtype or torch.promote_types(x2.dtype, torch.float32)
-    xp = F.pad(x2.to(cdt), (0, 0, 0, 0, 0, 0, (kd - 1) // 2, (kd - 1) // 2))
-    z = None
-    for dz in range(kd):
-        wdz = wt[:, dz].permute(0, 3, 1, 2, 4).reshape(n, 1, ci4, kh * kw * co4).to(cdt)
-        zd = torch.matmul(xp[:, dz:dz + d].flatten(2, 3), wdz)
-        zd = zd.to(torch.promote_types(zd.dtype, torch.float32))
-        z = zd if z is None else z + zd
-    return _tap_sum(z.reshape(*x2.shape[:4], kh * kw * co4), kh, kw, co4)
+    with span("mode.conv"):
+        xp = F.pad(x2.to(cdt), (0, 0, 0, 0, 0, 0, (kd - 1) // 2, (kd - 1) // 2))
+        z = None
+        for dz in range(kd):
+            wdz = wt[:, dz].permute(0, 3, 1, 2, 4).reshape(n, 1, ci4, kh * kw * co4).to(cdt)
+            zd = torch.matmul(xp[:, dz:dz + d].flatten(2, 3), wdz)
+            zd = zd.to(torch.promote_types(zd.dtype, torch.float32))
+            z = zd if z is None else z + zd
+        return _tap_sum(z.reshape(*x2.shape[:4], kh * kw * co4), kh, kw, co4)

@@ -60,7 +60,7 @@ from repmode_tpu_torch.train.state import TrainState, create_train_state, param_
 from repmode_tpu_torch.train.step import make_train_step
 from repmode_tpu_torch.utils import tiff
 from repmode_tpu_torch.utils.logging import rank_logger
-from repmode_tpu_torch.utils.timing import profile_trace
+from repmode_tpu_torch.utils.timing import profile_trace, span
 from repmode_tpu_torch.utils.tracking import Tracker
 
 
@@ -137,10 +137,11 @@ def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampl
     device = next(state.net.parameters()).device
     pending = []
     for batch in sampler.epoch(pad_tail_to_batch=mesh is not None):
-        if mesh is not None:
-            batch = shard_batch(mesh, batch)
-        else:
-            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with span("loop.h2d"):
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
+            else:
+                batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         pending.append(step_fn(batch))
     return _epoch_log(cfg, state, pending, epoch, t0, mesh)
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repmode_tpu_torch.config import Config
 from repmode_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_
 from repmode_tpu_torch.train.state import TrainState
+from repmode_tpu_torch.utils.timing import span
 
 Batch = Dict[str, torch.Tensor]  # signal (N,D,H,W,C), target (N,D,H,W,C), task (N,)
 
@@ -49,6 +50,10 @@ def make_train_step(cfg: Config, state: TrainState,
     params = [p for p in net.parameters() if p.requires_grad]
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        with span("step", state.step):
+            return _step(batch)
+
+    def _step(batch: Batch) -> Dict[str, torch.Tensor]:
         net.train()
         opt.zero_grad(set_to_none=True)
         out = net(batch["signal"], batch["task"])

@@ -1,38 +1,50 @@
-"""Per-phase wall-clock timing and optional ``torch.profiler`` traces.
+"""The port's tracing: named spans and optional ``torch.profiler`` traces.
 
-The port of ``repmode_tpu.utils.timing``. The reference logs coarse elapsed
-times only (main.py:122,150,200,233; time/train, time/val keys at
-main.py:264,324); ``PhaseTimer`` keeps those keys and ``profile_trace``
-records a trace of a region (``train/loop.run_experiment(...,
-profile_dir=...)`` wraps the first trained epoch in it).
+The port of ``repmode_tpu.utils.timing``. ``span`` names a region of the
+program in a running profiler's trace: a ``torch.profiler.record_function``
+range ``rm.<name>``, on the host and, around the kernels launched inside it,
+on the device's timeline, on the same clock as the kernels. With no profiler
+recording it is a shared null context, so the program pays one check of a
+bool a span. ``profile_trace`` records a trace of a region
+(``train/loop.run_experiment(..., profile_dir=...)`` wraps the first trained
+epoch in it).
+
+The spans, at the layer boundaries of the two paths:
+
+  rm.sampler.wait     data/sampler: the consumer's wait for its next batch
+  rm.loop.h2d         train/loop.run_train_epoch: the batch's copy to the card
+  rm.step             train/step: the whole train step
+  rm.mode.merge       ops/mode: the expert bank and the gate-merge einsum
+  rm.mode.conv        ops/mode: the casts and the conv of a MoDE conv, in the
+                      forward and in the hand-written backwards
+  rm.reparam.prepare  models/reparam: a task's re-parameterization
+  rm.predict          infer/predict: one volume
+  rm.predict.h2d      infer/predict: the volume's copy to the card
+  rm.predict.stitch   infer/predict: a batch's gather of patches, its blend
+                      into the sums, and the final divide
+
+A span opened in a plain Python thread is not recorded (the sampler's
+prefetch thread has none); one opened in a custom ``autograd.Function``'s
+backward is, since autograd carries the profiler's state to its threads.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
+PREFIX = "rm."
+_OFF = contextlib.nullcontext()
 
-class PhaseTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
-
-    def pop(self, name: str) -> float:
-        return self.totals.pop(name, 0.0)
-
-    def as_log_dict(self, prefix: str = "time/") -> Dict[str, float]:
-        return {f"{prefix}{k}": v for k, v in self.totals.items()}
+def span(name: str, args: Optional[object] = None):
+    """A ``record_function`` range ``rm.<name>`` (``args``, if any, as its
+    string argument) while a profiler records; else a shared null context."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name, None if args is None else str(args))
 
 
 @contextlib.contextmanager

@@ -1,7 +1,7 @@
-"""The port's ``utils/flops`` and ``utils/timing`` against the JAX package's,
-on the CPU: the FLOP model's integers, the patch count against the
-predictor's grid, ``PhaseTimer``, and the trace ``run_experiment`` records
-of its first trained epoch under ``profile_dir``."""
+"""The port's ``utils/flops`` against the JAX package's, on the CPU: the FLOP
+model's integers, the patch count against the predictor's grid, and the
+trace ``run_experiment`` records of its first trained epoch under
+``profile_dir`` (``utils/timing``; its spans: ``test_torch_port_tracing``)."""
 
 import glob
 import json
@@ -17,7 +17,6 @@ from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.parallel.distributed import process_info
 from repmode_tpu_torch.train.loop import run_experiment
 from repmode_tpu_torch.utils import flops
-from repmode_tpu_torch.utils.timing import PhaseTimer
 
 torch.set_num_threads(2)
 
@@ -58,18 +57,6 @@ def test_patch_count_equals_the_predictors_grid(vol):
     assert flops.tiling_patch_count(vol, (32, 128, 128), 0.5) == pred.num_patches(vol)
 
 
-def test_phase_timer():
-    t = PhaseTimer()
-    for name in ("a", "a", "b"):
-        with t.phase(name):
-            pass
-    log = t.as_log_dict()
-    assert set(log) == {"time/a", "time/b"} and min(log.values()) >= 0
-    assert t.pop("a") >= 0
-    assert t.pop("a") == 0.0  # popped
-    assert t.as_log_dict(prefix="t_") == {"t_b": log["time/b"]}
-
-
 def test_process_info_without_a_group():
     assert process_info() == {"process_index": 0, "process_count": 1, "local_devices": 1,
                               "global_devices": 1}
@@ -92,5 +79,6 @@ def test_profile_dir_traces_the_first_epoch(tmp_path):
     assert len(traces) == 1
     names = [e.get("name", "") for e in json.load(open(traces[0]))["traceEvents"]]
     assert sum(n == "Optimizer.step#Adam.step" for n in names) == 2
+    assert sum(n == "rm.step" for n in names) == 2
     assert any(n.startswith("autograd::engine::evaluate_function") for n in names)
     assert any(n.startswith("aten::conv3d") or n.startswith("aten::convolution") for n in names)
