@@ -33,6 +33,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_tapconcat_persample,
 )
+from repmode_tpu_torch.ops.mode import gate_merge_persample
 from repmode_tpu_torch.train.state import create_train_state
 
 # bench.py: the derived V100 serving rate and the >= 5x north star
@@ -157,7 +158,9 @@ def kernel_launches() -> dict:
             "conv3d_same_persample_transpose": conv3d_same_persample.transpose_launches,
             "conv3d_dw_persample": conv3d_dw_persample.launches,
             "conv3d_dpad": conv3d_dpad.launches,
-            "conv3d_tapconcat_persample": conv3d_tapconcat_persample.launches}
+            "conv3d_tapconcat_persample": conv3d_tapconcat_persample.launches,
+            "gate_merge_persample": gate_merge_persample.launches,
+            "gate_merge_persample_backward": gate_merge_persample.backward_launches}
 
 
 def add_launches_since(before: dict, into: dict) -> None:

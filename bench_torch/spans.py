@@ -13,6 +13,7 @@ timing``), and prints one JSON line (also written to ``--out``):
   benchmark's buckets and idle gaps;
 - ``readings``: per unit (a step, a volume), in ms: ``sampler_ms.train``,
   ``h2d_ms.train``, ``step_idle_ms.train``, ``merge_fwd_ms.train``,
+  ``merge_bwd_ms.train``,
   ``conv_glue_ms.train`` (``rm.mode.conv``'s device time outside the conv
   buckets), ``prepare_ms.serve``, ``h2d_ms.serve``, ``stitch_ms.serve``;
 - ``checks``: the readings' own consistency: the conv buckets' time inside
@@ -149,6 +150,7 @@ def readings(kind: str, units: int, spans: dict, step_idle_s: float, conv_bucket
                 "h2d_ms.train": get("loop.h2d", "host_s") * per,
                 "step_idle_ms.train": step_idle_s * per,
                 "merge_fwd_ms.train": get("mode.merge", "device_s") * per,
+                "merge_bwd_ms.train": get("mode.merge_bwd", "device_s") * per,
                 "conv_glue_ms.train": (get("mode.conv", "device_s")
                                        - sum(conv.get(b, 0.0) for b in conv_buckets)) * per}
     return {"prepare_ms.serve": get("reparam.prepare", "host_s") * per,

@@ -217,6 +217,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_tapconcat_persample_plan,
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
+from repmode_tpu_torch.ops import mode as mode_mod
 from repmode_tpu_torch.ops.kernels import build
 from repmode_tpu_torch.parallel.mesh import (
     all_reduce_mean_, barrier, launch, make_mesh, replicate, shard_batch, sync_batch_norm)
@@ -242,6 +243,7 @@ SEED = 0
 # conv agrees within ~4e-3 either way) reads as a ~7x larger relative one.
 MODEL_SEED = 2
 PATCH = (32, 128, 128)
+MERGE_TAPS = ((5, 5, 5), (3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1))  # the five experts
 
 
 def emit(obj):
@@ -921,18 +923,72 @@ def full_width_batch(num_tasks, batch=8, seed=SEED + 20):
             "task": (torch.arange(batch) % num_tasks).int().cuda()}
 
 
+def gate_merge_bytes(n, ci, co):
+    """(forward, backward) bytes of the gate-merge kernels at one conv: the
+    fp32 experts (155 taps a pair) read once, the bf16 per-sample kernels
+    written; then the bf16 dW and the experts read, their gradients written."""
+    experts, per_sample = 4 * 155 * ci * co, 2 * n * 125 * ci * co
+    return experts + per_sample, per_sample + 2 * experts
+
+
+def gate_merge_against_plain(n, ci, co, seed):
+    """The gate-merge kernels through ``gate_merge_persample``, forward and
+    backward, against the plain version on the same operands. Returns wn's
+    largest error in bf16 ulps of the plain fp32 merge rounded to bf16 (less
+    a floor of 1e-6 of the largest, where the two fp32 sums' orders differ
+    near zero), and each of the six gradients' (five experts in the
+    parameters' layout, the gate) largest error over its largest magnitude,
+    against autograd through the fp64 bank and einsum on the same bf16 dW."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = [(torch.randn((co, ci) + s, generator=gen, device=dev) / (ci * 125) ** 0.5)
+              .requires_grad_() for s in MERGE_TAPS]
+    g = torch.softmax(2 * torch.randn((n, 5, co), generator=gen, device=dev), 1).requires_grad_()
+    dw = torch.randn((n, 5, 5, 5, ci, co), generator=gen, device=dev).to(torch.bfloat16)
+    wn = mode_mod.gate_merge_persample(
+        mode_mod.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params)), g, torch.bfloat16)
+    wn.backward(dw)
+    wn = wn.detach().float()
+    with torch.no_grad():
+        plain = mode_mod.gate_merge_persample_plain(
+            mode_mod.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params)), g,
+            torch.bfloat16).float()
+        ulp = torch.ldexp(torch.ones_like(plain), torch.frexp(plain.abs().clamp_min(1e-30))[1] - 8)
+        wn_ulps = float((((wn - plain).abs() - 1e-6 * plain.abs().max()) / ulp).max())
+    del wn, plain, ulp
+    leaves = [p.detach().double().requires_grad_() for p in params]
+    g64 = g.detach().double().requires_grad_()
+    ref = mode_mod.gate_merge_persample_plain(
+        mode_mod.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in leaves)), g64)
+    ref.backward(dw.double())
+    del ref
+    grad_rel = [float((got.double() - want).abs().max() / want.abs().max())
+                for got, want in zip([p.grad for p in params] + [g.grad],
+                                     [p.grad for p in leaves] + [g64.grad])]
+    return wn_ulps, grad_rel
+
+
 def train_step_phase(convs, num_tasks, steps=6):
     """The full-width train step (batch 8, mixed tasks, bf16): its time
-    (median over steps after one warm-up), its device profile, and the time
-    of the gate-merge einsums (forward and backward) at the 19 conv shapes."""
+    (median over steps after one warm-up), its device profile, the
+    gate-merge kernels' launches in a step, the kernels (through
+    ``gate_merge_persample``, forward and backward) against the plain
+    version at the 19 conv shapes, and the time of the gate merge there: the
+    kernel pair (forward and backward,
+    ``csrc/gate_merge.cu``) beside its bytes bound, and the fp32 bank einsum
+    (forward and its autograd backward) that the route ran before them."""
     cfg = Config(model=ModelConfig(train_s2d=False),
                  data=DataConfig(adopted_datasets=DEFAULT_DATASETS[:num_tasks]))
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 21), "cuda")
     step = make_train_step(cfg, state)
     batch = full_width_batch(num_tasks)
     torch.cuda.reset_peak_memory_stats()
+    merges = (mode_mod.gate_merge_persample.launches,
+              mode_mod.gate_merge_persample.backward_launches)
     step(batch)  # warm-up
     torch.cuda.synchronize()
+    merges = (mode_mod.gate_merge_persample.launches - merges[0],
+              mode_mod.gate_merge_persample.backward_launches - merges[1])
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -944,15 +1000,34 @@ def train_step_phase(convs, num_tasks, steps=6):
     del prof["conv3d_same_ms"], prof["conv3d_dpad_ms"]
     kms = per_sample_kernel_ms(kernels)
 
-    # the gate merge of every MoDE conv: einsum forward, then its backward
-    # (gradients of the bank and of the gate) from a per-sample dW
-    merge_ms = 0.0
+    # the gate-merge kernels against the plain version at every MoDE conv
+    against = []
+    for k, cv in enumerate(convs):
+        n, ci, co = cv["x"][0], cv["x"][-1], cv["co"]
+        against.append((ci, co, *gate_merge_against_plain(n, ci, co, seed=SEED + 30 + k)))
+        torch.cuda.empty_cache()
+
+    # the gate merge of every MoDE conv: the kernel pair, then the einsum
+    # forward and its backward (gradients of the bank and of the gate) from
+    # a per-sample dW
+    merge_ms = fwd_ms = bwd_ms = 0.0
+    fwd_bytes = bwd_bytes = 0
     dev = torch.device("cuda")
     for cv in convs:
         n, _, _, _, ci = cv["x"]
         co = cv["co"]
+        params = [torch.randn((co, ci) + s, device=dev) for s in MERGE_TAPS]
+        ek = mode_mod.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params))
+        g = torch.softmax(torch.randn((n, 5, co), device=dev), dim=1)
+        dwb = torch.randn((n, 5, 5, 5, ci, co), device=dev).to(torch.bfloat16)
+        fwd_ms += cuda_ms(lambda: mode_mod._gate_merge_cuda(ek, g, torch.bfloat16, 5), reps=5)
+        bwd_ms += cuda_ms(lambda: mode_mod._gate_merge_backward_cuda([*ek, g], dwb), reps=5)
+        fb, bb = gate_merge_bytes(n, ci, co)
+        fwd_bytes += fb
+        bwd_bytes += bb
+        del params, ek, dwb
         bank = torch.randn((5, 5, 5, 5, ci, co), device=dev, requires_grad=True)
-        g = torch.rand((n, 5, co), device=dev, requires_grad=True)
+        g = g.clone().requires_grad_()
         dwn = torch.randn((n, 5, 5, 5, ci, co), device=dev)
 
         def merge():
@@ -965,12 +1040,31 @@ def train_step_phase(convs, num_tasks, steps=6):
     out = {"phase": "train_step", "batch": 8, "patch": list(PATCH), "tasks": num_tasks,
            "step_ms_median": times[len(times) // 2], "step_ms_all": times,
            "peak_memory_gb": peak_gb, **prof, "k2_ms": kms["k2_ms"], "k3_ms": kms["k3_ms"],
-           "k4_ms": kms["k4_ms"], "gate_merge_einsum_ms": merge_ms,
-           "gate_merge_note": "forward einsum + its backward at the 19 conv shapes, fp32, "
-                              "timed apart from the step with CUDA events"}
+           "k4_ms": kms["k4_ms"], "gate_merge_launches_per_step": list(merges),
+           "gate_merge_fwd_ms": fwd_ms, "gate_merge_bwd_ms": bwd_ms,
+           "gate_merge_fwd_gb": fwd_bytes / 1e9, "gate_merge_bwd_gb": bwd_bytes / 1e9,
+           "gate_merge_bound_ms": (fwd_bytes + bwd_bytes) / 3.35e9,
+           "gate_merge_einsum_ms": merge_ms,
+           "gate_merge_note": "at the 19 conv shapes, timed apart from the step with CUDA "
+                              "events: the kernel pair (bf16 out, fp32 gradients; bound: its "
+                              "bytes at 3.35 TB/s) and the fp32 bank einsum with its backward",
+           "gate_merge_wn_max_ulps": max(a[2] for a in against),
+           "gate_merge_grad_max_rel": max(max(a[3]) for a in against),
+           "gate_merge_vs_plain": [[ci, co, u, max(r)] for ci, co, u, r in against],
+           "gate_merge_vs_plain_note": "per conv (Ci, Co, wn's largest error in bf16 ulps of "
+                                       "the plain merge beyond a 1e-6 floor, the six gradients' "
+                                       "largest error over their largest against fp64)"}
     emit(out)
+    for ci, co, ulps, rel in against:
+        check(ulps <= 1, f"train_step: the gate-merge forward at Ci={ci}, Co={co} is {ulps} bf16 "
+                         f"ulps from the plain version, over 1")
+        check(max(rel) <= 1e-5, f"train_step: the gate-merge gradients at Ci={ci}, Co={co} are "
+                                f"{rel} of their largest from the plain version's, over 1e-5")
     check(out["k2_ms"] > 0 and out["k3_ms"] > 0 and out["k4_ms"] > 0,
           "train_step: a per-sample kernel is missing from the profile")
+    check(merges == (len(convs), len(convs)),
+          f"train_step: the gate-merge kernels launched {merges} times in a step, expected "
+          f"{len(convs)} each way")
     del state, step
     torch.cuda.empty_cache()
 
@@ -2936,12 +3030,16 @@ def bench_phase(card):
     for rec in trecords:
         emit({"phase": "bench_train", **rec})
     check(not failures, f"bench: train {failures}")
+    # the gate-merge kernels run at the native levels: all 19 convs, or the
+    # 10 of levels 3-4 and the bottleneck where levels 1-2 run s2d
     per_step = {("native", "auto"): {"conv3d_same_persample": 19,
                                      "conv3d_same_persample_transpose": 18,
-                                     "conv3d_dw_persample": 19},
+                                     "conv3d_dw_persample": 19, "gate_merge_persample": 19,
+                                     "gate_merge_persample_backward": 19},
                 ("s2d", "auto"): {"conv3d_same_persample": 17,
                                   "conv3d_same_persample_transpose": 17,
-                                  "conv3d_dw_persample": 18, "conv3d_tapconcat_persample": 1},
+                                  "conv3d_dw_persample": 18, "conv3d_tapconcat_persample": 1,
+                                  "gate_merge_persample": 10, "gate_merge_persample_backward": 10},
                 ("native", "expert_sum"): {}}
     check([(r["layout"], r["train_impl"]) for r in trecords] == BENCH_TRAIN_PAIRS,
           "bench: a training pair is missing")
@@ -2967,9 +3065,11 @@ def bench_phase(card):
 # that rule is read at 300 steps (PARITY_TRAINING_TORCH*.json, PERF.md).
 PARITY_TRAIN_STEPS = 4
 PARITY_STEP = {"conv3d_same_persample": 19, "conv3d_same_persample_transpose": 18,
-               "conv3d_dw_persample": 19}
+               "conv3d_dw_persample": 19, "gate_merge_persample": 19,
+               "gate_merge_persample_backward": 19}
 PARITY_STEP_S2D = {"conv3d_tapconcat_persample": 1, "conv3d_same_persample": 17,
-                   "conv3d_same_persample_transpose": 17, "conv3d_dw_persample": 18}
+                   "conv3d_same_persample_transpose": 17, "conv3d_dw_persample": 18,
+                   "gate_merge_persample": 10, "gate_merge_persample_backward": 10}
 
 
 def parity_phase(card):
@@ -2979,11 +3079,12 @@ def parity_phase(card):
     expert_sum = the rounding floor), then a short tools_torch.train_parity
     (mult_chan 32, 12 tasks, batch 2, PARITY_TRAIN_STEPS steps, native
     layout). The golden's rules hold, its planted faults are caught; the
-    golden's kernel arm launched K1-K6 (K2/K3/K4 19/18/19 a native step, K6 1
-    and 17/17/18 an s2d step, K1 19 / 20 on the native / XLA s2d serving
-    routes, K5 7 and K1 12 on the K5 route), the other arms none; the fp32
-    training arm is bit-identical when run twice and the kernel arm launched
-    19/18/19 a step."""
+    golden's kernel arm launched K1-K6 and the gate merge (K2/K3/K4 19/18/19
+    and the gate merge 19/19 a native step, K6 1, 17/17/18 and 10/10 an s2d
+    step, K1 19 / 20 on the native / XLA s2d serving routes, K5 7 and K1 12
+    on the K5 route), the other arms none; the fp32 training arm is
+    bit-identical when run twice and the kernel arm launched 19/18/19 and
+    19/19 a step."""
     t0 = time.perf_counter()
     rec = parity_check.run(device="cuda")
     arms = rec["arms"]
@@ -2998,8 +3099,9 @@ def parity_phase(card):
     held = {r["arm"] for r in rec["planted"] if r["check"] == "plant_zero"}
     check(held == {"fp32_expert_sum", "bf16_auto"}, f"parity: faults planted in {held}")
     k = arms["bf16_auto"]["launches"]
-    want = {"train_fwd_native": {"conv3d_same_persample": 19},
-            "train_fwd_s2d": {"conv3d_tapconcat_persample": 1, "conv3d_same_persample": 17},
+    want = {"train_fwd_native": {"conv3d_same_persample": 19, "gate_merge_persample": 19},
+            "train_fwd_s2d": {"conv3d_tapconcat_persample": 1, "conv3d_same_persample": 17,
+                              "gate_merge_persample": 10},
             "loss_and_grad": PARITY_STEP, "loss_and_grad_s2d": PARITY_STEP_S2D,
             "reparam_fwd": {"conv3d_same": 19}, "reparam_fwd_s2d": {"conv3d_same": 20},
             "reparam_fwd_k5": {"conv3d_same": 12, "conv3d_dpad": 7}}

@@ -34,6 +34,7 @@ SOURCES: Dict[str, str] = {
     "conv3d_dw_persample": "conv3d_dw_persample.cu",
     "conv3d_dpad": "conv3d_dpad.cu",
     "conv3d_tapconcat": "conv3d_tapconcat.cu",
+    "gate_merge": "gate_merge.cu",
 }
 
 NVCC_FLAGS = (
@@ -164,6 +165,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_tapconcat_bf16.restype = i32
         lib.conv3d_tapconcat_wgmma_unit.argtypes = [ptr, ptr, ptr, i32, ptr]
         lib.conv3d_tapconcat_wgmma_unit.restype = i32
+    elif name == "gate_merge":
+        lib.gate_merge_fwd_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.gate_merge_fwd_bf16.restype = i32
+        lib.gate_merge_bwd_bf16.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
+        lib.gate_merge_bwd_bf16.restype = i32
     else:
         raise KeyError(f"no C interface declared for kernel {name!r}")
     err_fn = getattr(lib, f"{name}_error_string")

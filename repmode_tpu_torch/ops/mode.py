@@ -12,10 +12,11 @@ so the gated sum of the five expert convs equals one conv with the merged
 kernel (``merge_kernels``). Three executions of that one function:
 
   mode_conv_merged_persample  the training route: the gate merges the experts
-                 into one 5^3 kernel per sample (an einsum, autograd through
-                 bank and gate), then ``MergedConvPerSample`` runs the conv
-                 with a hand-written forward (K2), dx (K3) and dW (K4) on the
-                 card, their plain versions on the CPU;
+                 into one 5^3 kernel per sample (``GateMergePerSample``: on
+                 the card a hand-written forward and backward, no bank; on
+                 the CPU the bank and an einsum), then ``MergedConvPerSample``
+                 runs the conv with a hand-written forward (K2), dx (K3) and
+                 dW (K4) on the card, their plain versions on the CPU;
   mode_conv_expert_sum  the reference: five shared-kernel convs, combined
                  (``_expert_conv``: K1 without grad, ``conv3d_same_autograd``
                  under it);
@@ -32,6 +33,7 @@ and, for the Co <= 4 ``conv_out``, ``mode_conv_tapmajor_merged_s2d``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,6 +48,7 @@ from repmode_tpu_torch.ops.conv3d import (
     conv3d_same_persample,
     conv3d_tapconcat_persample,
 )
+from repmode_tpu_torch.ops.kernels import build
 from repmode_tpu_torch.ops.s2d import box_pool_s2d, s2d_conv1_kernel, s2d_conv_kernel
 from repmode_tpu_torch.utils.timing import span
 
@@ -103,6 +106,176 @@ def merge_kernels(ek: ExpertKernels, g: torch.Tensor, kernel_size: int = 5) -> t
     """Per-sample merged kernels: g (N, E, Co) -> (N, k,k,k, Ci, Co)."""
     bank = expert_bank(ek, kernel_size)
     return torch.einsum("neo,edhwio->ndhwio", g.to(bank.dtype), bank)
+
+
+# ------------------------------------------- the training route's gate merge
+
+
+def gate_merge_persample_plain(ek: ExpertKernels, g: torch.Tensor, compute_dtype=None,
+                               kernel_size: int = 5) -> torch.Tensor:
+    """Plain version of ``gate_merge_persample``: ``merge_kernels`` (the bank
+    and the einsum, in the experts' dtype), then a cast to ``compute_dtype``.
+    Its gradient is autograd's through the same ops."""
+    wn = merge_kernels(ek, g, kernel_size)
+    return wn if compute_dtype is None else wn.to(compute_dtype)
+
+
+class GateMergePerSample(torch.autograd.Function):
+    """The per-sample merged kernels of the training route, with a
+    hand-written backward: the five expert kernels (DHWIO views) and the gate
+    g (N,E,Co) -> wn (N,k,k,k,Ci,Co) in ``compute_dtype``.
+
+    On a CUDA tensor: two hand-written kernels (``csrc/gate_merge.cu``). The
+    forward reads the experts in the parameters' (Co,Ci,kD,kH,kW) layout and
+    writes bf16 ``wn`` in K2's layout, contiguous; no bank is formed. The
+    backward reads the bf16 per-sample dW once and writes the five weight
+    gradients in the parameters' layout (fp32, returned as DHWIO views of
+    it, so accumulating them copies nothing) and the gate's. Both sum in
+    fp32 in a fixed order. bf16 compute and kernel size 5 only. On any
+    other device (the CPU; the meta device of the plan tests):
+    ``gate_merge_persample_plain`` and autograd through it.
+    """
+
+    @staticmethod
+    def forward(ctx, w5, w3, w1, wa3, wa5, g, compute_dtype, kernel_size):
+        ctx.save_for_backward(w5, w3, w1, wa3, wa5, g)
+        ctx.kernel_size = kernel_size
+        if g.device.type != "cuda":
+            return gate_merge_persample_plain(ExpertKernels(w5, w3, w1, wa3, wa5), g,
+                                              compute_dtype, kernel_size)
+        return _gate_merge_cuda(ExpertKernels(w5, w3, w1, wa3, wa5), g, compute_dtype,
+                                kernel_size)
+
+    @staticmethod
+    def backward(ctx, dwn):
+        saved = ctx.saved_tensors
+        with span("mode.merge_bwd"):
+            if dwn.device.type != "cuda":
+                with torch.enable_grad():
+                    leaves = [t.detach().requires_grad_() for t in saved]
+                    wn = gate_merge_persample_plain(ExpertKernels(*leaves[:5]), leaves[5],
+                                                    None, ctx.kernel_size)
+                grads = torch.autograd.grad(wn, leaves, dwn.to(wn.dtype))
+            else:
+                grads = _gate_merge_backward_cuda(saved, dwn)
+        return (*grads, None, None)
+
+
+def gate_merge_persample(ek: ExpertKernels, g: torch.Tensor, compute_dtype: torch.dtype,
+                         kernel_size: int = 5) -> torch.Tensor:
+    """``GateMergePerSample``: the per-sample merged kernels (N,k,k,k,Ci,Co)
+    in ``compute_dtype``. ``gate_merge_persample.launches`` counts launches
+    of the forward kernel, ``.backward_launches`` those of the backward."""
+    return GateMergePerSample.apply(*ek, g, compute_dtype, kernel_size)
+
+
+gate_merge_persample.launches = 0
+gate_merge_persample.backward_launches = 0
+
+_MERGE_PAIRS = 64    # (i, o) pairs a tile at most (csrc/gate_merge.cu: ELEMS)
+_MERGE_SLOTS = 264   # two blocks an SM of an H100: the grid the plan aims at, whatever the card
+
+
+@functools.lru_cache(maxsize=256)
+def gate_merge_plan(n: int, ci: int, co: int) -> dict:
+    """The tiles of ``csrc/gate_merge.cu`` for N samples and Ci x Co: ``bo``
+    output channels (Co, or 64 above it) by ``bi`` input channels a tile (at
+    most 64 pairs; fewer input channels where the tiles would not give
+    ``_MERGE_SLOTS`` blocks), ``otiles`` x ``itiles`` tiles. The forward
+    splits the samples over blocks, ``samples_per_block`` each, where the
+    tiles alone are too few; the backward's blocks walk ``tiles_per_group``
+    input tiles each, ``groups`` of them along Ci (about ``2 *
+    _MERGE_SLOTS`` blocks in all). From
+    the shapes alone, so that the sums' order, and the bits, are the same
+    on every card. Cached: callers copy the dict, never change it."""
+    bo = min(co, _MERGE_PAIRS)
+    bi = max(1, min(ci, _MERGE_PAIRS // bo))
+    otiles = -(-co // bo)
+    while bi > 1 and otiles * -(-ci // bi) < _MERGE_SLOTS:
+        bi //= 2
+    itiles = -(-ci // bi)
+    splits = min(n, max(1, _MERGE_SLOTS // (otiles * itiles)))
+    groups = min(itiles, -(-2 * _MERGE_SLOTS // otiles))
+    per = -(-itiles // groups)
+    return dict(bo=bo, bi=bi, otiles=otiles, itiles=itiles, samples_per_block=-(-n // splits),
+                tiles_per_group=per, groups=-(-itiles // per))
+
+
+def _expert_layouts(ek: ExpertKernels, kernel_size: int):
+    """The experts as the kernels read them: (Co,Ci,kD,kH,kW) fp32,
+    contiguous (the parameters themselves, viewed back; a copy only for
+    another layout). Raises on what the kernels do not take."""
+    ci, co = ek.w5.shape[3:]
+    want = [(5, 5, 5), (3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1)]
+    if kernel_size != 5 or [tuple(w.shape) for w in ek] != [s + (ci, co) for s in want]:
+        raise ValueError(f"gate_merge_persample: the CUDA kernels take kernel_size 5 and experts "
+                         f"{[s + (ci, co) for s in want]}, got kernel_size {kernel_size} and "
+                         f"{[tuple(w.shape) for w in ek]}")
+    if any(w.dtype != torch.float32 for w in ek):
+        raise ValueError(f"gate_merge_persample: the CUDA kernels read float32 experts, got "
+                         f"{[w.dtype for w in ek]}")
+    return [w.permute(4, 3, 0, 1, 2).contiguous() for w in ek]
+
+
+def _gate_operand(g: torch.Tensor, device, co: int) -> torch.Tensor:
+    if g.dtype != torch.float32 or g.dim() != 3 or g.shape[1:] != (5, co):
+        raise ValueError(f"gate_merge_persample: the gate must be float32 (N, 5, {co}), got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if g.device != device:
+        raise ValueError(f"gate_merge_persample: gate on {g.device}, experts on {device}")
+    return g.contiguous()
+
+
+def _gate_merge_cuda(ek: ExpertKernels, g: torch.Tensor, compute_dtype, kernel_size):
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"gate_merge_persample: the CUDA kernel writes bfloat16, got "
+                         f"compute_dtype {compute_dtype}")
+    ws = _expert_layouts(ek, kernel_size)
+    co, ci = ws[0].shape[:2]
+    gc = _gate_operand(g, ws[0].device, co)
+    n = gc.shape[0]
+    plan = gate_merge_plan(n, ci, co)
+    wn = torch.empty((n, 5, 5, 5, ci, co), dtype=torch.bfloat16, device=gc.device)
+    lib = build.load("gate_merge")
+    err = lib.gate_merge_fwd_bf16(*(w.data_ptr() for w in ws), gc.data_ptr(), wn.data_ptr(),
+                                  n, ci, co, plan["bo"], plan["bi"], plan["samples_per_block"],
+                                  torch.cuda.current_stream(gc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gate_merge_persample forward launch failed "
+                           f"({lib.gate_merge_error_string(err).decode()}) for N={n}, Ci={ci}, "
+                           f"Co={co}, plan {plan}")
+    gate_merge_persample.launches += 1
+    return wn
+
+
+def _gate_merge_backward_cuda(saved, dwn: torch.Tensor):
+    ek, g = ExpertKernels(*saved[:5]), saved[5]
+    ws = _expert_layouts(ek, 5)
+    co, ci = ws[0].shape[:2]
+    gc = _gate_operand(g, ws[0].device, co)
+    n = gc.shape[0]
+    if dwn.dtype != torch.bfloat16 or tuple(dwn.shape) != (n, 5, 5, 5, ci, co):
+        raise ValueError(f"gate_merge_persample: the backward reads a bfloat16 dW "
+                         f"{(n, 5, 5, 5, ci, co)}, got {dwn.dtype} {tuple(dwn.shape)}")
+    dwn = dwn.contiguous()
+    plan = gate_merge_plan(n, ci, co)
+    grads = [torch.empty_like(w) for w in ws]
+    dg = torch.empty_like(gc)
+    work = (torch.empty((plan["groups"],) + tuple(gc.shape), dtype=torch.float32,
+                        device=gc.device) if plan["groups"] > 1 else None)
+    lib = build.load("gate_merge")
+    err = lib.gate_merge_bwd_bf16(
+        *(w.data_ptr() for w in ws), gc.data_ptr(), dwn.data_ptr(),
+        *(d.data_ptr() for d in grads), dg.data_ptr(), None if work is None else work.data_ptr(),
+        n, ci, co, plan["bo"], plan["bi"], plan["tiles_per_group"], plan["groups"],
+        torch.cuda.current_stream(gc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gate_merge_persample backward launch failed "
+                           f"({lib.gate_merge_error_string(err).decode()}) for N={n}, Ci={ci}, "
+                           f"Co={co}, plan {plan}; its shared memory holds the gate's gradient "
+                           f"of every sample, N x 5 x bo floats")
+    gate_merge_persample.backward_launches += 1
+    return [d.permute(2, 3, 4, 1, 0) for d in grads] + [dg]
 
 
 def _expert_conv(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -196,18 +369,17 @@ def mode_conv_merged_persample(
     (RepMode.py:171-208) at merged-kernel operations.
 
     The native-layout counterpart of ``mode_conv_merged_s2d_pallas``: the
-    bank and the fp32 gate merge ``einsum("neo,edhwio->ndhwio")`` (autograd
-    through both), a cast of x and the merged kernels to the compute dtype
-    (fp32 floor when None), then ``MergedConvPerSample``. x: (N,D,H,W,Ci),
-    g: (N,E,Co) -> (N,D,H,W,Co) in the compute dtype.
+    gate merge ``gate_merge_persample`` (on the card two hand-written
+    kernels; on the CPU the bank and the fp32 einsum) straight into the
+    compute dtype (fp32 floor when None), a cast of x, then
+    ``MergedConvPerSample``. x: (N,D,H,W,Ci), g: (N,E,Co) -> (N,D,H,W,Co)
+    in the compute dtype.
     """
-    with span("mode.merge"):
-        bank = expert_bank(ek, kernel_size)
-        gdt = torch.promote_types(g.dtype, torch.float32)
-        wn = torch.einsum("neo,edhwio->ndhwio", g.to(gdt), bank.to(gdt))
     cdt = compute_dtype or torch.promote_types(x.dtype, torch.float32)
+    with span("mode.merge"):
+        wn = gate_merge_persample(ek, g, cdt, kernel_size)
     with span("mode.conv"):
-        return MergedConvPerSample.apply(x.to(cdt), wn.to(cdt))
+        return MergedConvPerSample.apply(x.to(cdt), wn)
 
 
 def mode_conv_single(

@@ -8,7 +8,9 @@ descriptors a one-block test holds first), K5 (``conv3d_dpad``: its plan, each t
 warpgroup-MMA instance through forced plans, its halo rows) and K6
 (``conv3d_tapconcat_persample``: its plan, each tile of its persistent
 warpgroup-MMA instance, whose descriptors and weight map a one-block test
-holds first, and its mma.sync instance), the training path through K2-K4 and, under
+holds first, and its mma.sync instance), the gate-merge kernels of the
+training route (``gate_merge_persample``: forward and backward, at every
+MoDE conv of the net), the training path through K2-K4 and, under
 ``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
 space-to-depth serving routes through K1 and K5, and the space-to-depth
 training path through K6 and K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
@@ -53,6 +55,7 @@ from repmode_tpu_torch.ops.conv3d import (
 )
 from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.ops.kernels import build
+from repmode_tpu_torch.ops import mode as tmode
 from repmode_tpu_torch.ops.mode import MergedConvPerSample
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -651,6 +654,99 @@ def test_train_step_runs_through_the_per_sample_kernels(cuda):
     convs = 4 * cfg.model.depth + 3
     assert tuple(a - b for a, b in zip(after, before)) == (0, convs, convs - 1, convs)
     assert torch.isfinite(m["loss"]) and int(m["per_task_count"].sum()) == 2
+    for name, p in state.net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+# (Ci, Co) of the 19 MoDE convs at mult_chan 32, in the net's order
+MERGE_CONVS = [(shape[-1], co) for shape, co in k1_serving_shapes(ModelConfig(), batch=1)]
+
+
+def merge_operands(n, ci, co, device, seed):
+    """Expert parameters (Co,Ci,k,k,k) fp32 and their DHWIO views, a
+    softmaxed gate (N,5,Co) and a bf16 per-sample dW (N,5,5,5,Ci,Co)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = [(torch.randn((co, ci) + taps, generator=gen, device=device) / (ci * 125) ** 0.5)
+              .requires_grad_() for taps in ((5, 5, 5), (3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1))]
+    g = torch.softmax(2 * torch.randn((n, 5, co), generator=gen, device=device), 1)
+    dw = torch.randn((n, 5, 5, 5, ci, co), generator=gen, device=device).to(torch.bfloat16)
+    return params, g.requires_grad_(), dw
+
+
+def merge_on_card(params, g, dw):
+    """wn and the six gradients (experts in their parameters' layout, gate)."""
+    for p in params + [g]:
+        p.grad = None
+    ek = tmode.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params))
+    wn = tmode.gate_merge_persample(ek, g, torch.bfloat16)
+    wn.backward(dw)
+    return wn.detach(), [p.grad for p in params] + [g.grad]
+
+
+@pytest.mark.parametrize("ci,co", MERGE_CONVS)
+def test_gate_merge_kernels_match_plain(cuda, ci, co):
+    """The gate-merge kernels at each MoDE conv of mult_chan 32, batch 8,
+    against the plain version: wn within one bf16 ulp of the plain fp32
+    merge rounded to bf16 (and within half an ulp of the fp64 merge), each
+    with a floor of 1e-6 of the largest for the fp32 sums' rounding near
+    zero; the six gradients to 1e-5 of the largest,
+    against autograd through the fp64 bank and einsum on the same bf16 dW.
+    The weights' gradients come in the parameters' layout, contiguous."""
+    params, g, dw = merge_operands(8, ci, co, cuda, seed=ci * 1000 + co)
+    wn, grads = merge_on_card(params, g, dw)
+    assert wn.dtype == torch.bfloat16 and wn.shape == (8, 5, 5, 5, ci, co) and wn.is_contiguous()
+    ek = tmode.ExpertKernels(*(p.detach().permute(2, 3, 4, 1, 0) for p in params))
+    plain = tmode.gate_merge_persample_plain(ek, g.detach(), torch.bfloat16).float()
+    ulp = torch.ldexp(torch.ones_like(plain), torch.frexp(plain.abs().clamp_min(1e-30))[1] - 8)
+    # plus a floor for values near zero, where the two fp32 sums' orders differ
+    assert bool(((wn.float() - plain).abs() <= ulp + 1e-6 * plain.abs().max()).all())
+    leaves = [p.detach().double().requires_grad_() for p in params]
+    g64 = g.detach().double().requires_grad_()
+    ref = tmode.gate_merge_persample_plain(
+        tmode.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in leaves)), g64)
+    ref.backward(dw.double())
+    top = ref.detach().abs().max()
+    assert bool(((wn.double() - ref.detach()).abs() <= 2.0**-8 * ref.detach().abs()
+                 + 1e-6 * top).all())
+    for k, (got, want) in enumerate(zip(grads, [p.grad for p in leaves] + [g64.grad])):
+        assert got.dtype == torch.float32 and got.shape == want.shape and got.is_contiguous(), k
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max()), k
+
+
+@pytest.mark.parametrize("ci,co", [(32, 32), (512, 512), (32, 1)])
+def test_gate_merge_kernels_are_deterministic(cuda, ci, co):
+    """Two runs on the same operands give the same bits: wn and every
+    gradient (the backward adds the input-channel groups' shares in order)."""
+    params, g, dw = merge_operands(8, ci, co, cuda, seed=7)
+    wn1, grads1 = merge_on_card(params, g, dw)
+    grads1 = [x.clone() for x in grads1]
+    wn2, grads2 = merge_on_card(params, g, dw)
+    assert torch.equal(wn1, wn2)
+    assert all(torch.equal(a, b) for a, b in zip(grads1, grads2))
+
+
+def test_train_step_runs_the_gate_merge_kernels(cuda, monkeypatch):
+    """A bf16 train step at mult_chan 32 (patch 16x32x32, batch 2): the
+    gate-merge kernels launch 19 times each way, and no expert bank is
+    formed on the card's route."""
+    def no_bank(*a, **k):
+        raise AssertionError("expert_bank called on the card's training route")
+
+    monkeypatch.setattr(tmode, "expert_bank", no_bank)
+    cfg = Config(model=ModelConfig(train_s2d=False),
+                 data=DataConfig(adopted_datasets=("dna", "lamin_b1")), train=TrainConfig())
+    state = create_train_state(cfg, torch.Generator().manual_seed(5), cuda)
+    step = make_train_step(cfg, state)
+    g = torch.Generator().manual_seed(6)
+    sig = torch.randn((2, 16, 32, 32, 1), generator=g)
+    batch = {"signal": sig.to(cuda), "target": (0.5 * sig).to(cuda),
+             "task": torch.tensor([0, 1], dtype=torch.int32, device=cuda)}
+    merge = tmode.gate_merge_persample
+    before = (merge.launches, merge.backward_launches)
+    m = step(batch)
+    torch.cuda.synchronize()
+    assert (merge.launches - before[0], merge.backward_launches - before[1]) == (19, 19)
+    assert torch.isfinite(m["loss"])
     for name, p in state.net.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 

@@ -94,7 +94,8 @@ def test_spans_under_the_profiler(runs):
     m, nb = on["mode_convs"], on["batches"]
     assert m > 0 and nb == 4
     assert count == {"rm.sampler.wait": 2, "rm.loop.h2d": 2, "rm.step": 2,
-                     "rm.mode.merge": 2 * m, "rm.mode.conv": 2 * 2 * m,
+                     "rm.mode.merge": 2 * m, "rm.mode.merge_bwd": 2 * m,
+                     "rm.mode.conv": 2 * 2 * m,
                      "rm.reparam.prepare": 1, "rm.predict": 1, "rm.predict.h2d": 1,
                      "rm.predict.stitch": 2 * nb + 1}
     for r in mine:
@@ -110,6 +111,9 @@ def test_spans_under_the_profiler(runs):
               if r[0].startswith("autograd::engine::evaluate_function")]
     backward = [r for r in mine if r[0] == "rm.mode.conv" and _around(r, engine)]
     assert len(backward) == 2 * m
+    # every gate-merge backward runs in autograd's engine, outside the conv's
+    merge_bwd = [r for r in mine if r[0] == "rm.mode.merge_bwd" and _around(r, engine)]
+    assert len(merge_bwd) == 2 * m
 
 
 def test_profiler_leaves_the_numbers_alone(runs):
@@ -162,7 +166,7 @@ def test_span_split_by_hand():
 
 def test_readings_a_unit():
     spans = {"rm.sampler.wait": {"host_s": 0.002}, "rm.loop.h2d": {"host_s": 0.010},
-             "rm.mode.merge": {"device_s": 0.030},
+             "rm.mode.merge": {"device_s": 0.030}, "rm.mode.merge_bwd": {"device_s": 0.006},
              "rm.mode.conv": {"device_s": 0.5, "device_by_bucket": {"k2": 0.2, "cast": 0.1,
                                                                     "k4": 0.2}},
              "rm.reparam.prepare": {"host_s": 0.04}, "rm.predict.h2d": {"host_s": 0.06},
@@ -170,7 +174,7 @@ def test_readings_a_unit():
     train = bench_spans.readings("train", 2, spans, 0.004, ("k2", "k3", "k4"))
     assert train == pytest.approx({"sampler_ms.train": 1, "h2d_ms.train": 5,
                                    "step_idle_ms.train": 2, "merge_fwd_ms.train": 15,
-                                   "conv_glue_ms.train": 50})
+                                   "merge_bwd_ms.train": 3, "conv_glue_ms.train": 50})
     serve = bench_spans.readings("serve", 2, spans, 0.0, ())
     assert serve == pytest.approx({"prepare_ms.serve": 20, "h2d_ms.serve": 30,
                                    "stitch_ms.serve": 4})

@@ -6,6 +6,10 @@
     interpret mode, at native 5^3 taps;
   * ``MergedConvPerSample`` against JAX ``merged_conv_persample`` (value and
     both VJPs), and the merged MoDE conv against the expert sum;
+  * ``GateMergePerSample`` against the bank einsum (fp64 gradients, bf16
+    bits), JAX's ``merge_kernels`` and its VJP, and the sums its CUDA
+    kernels compute;
+    their tiles, and the CUDA route's refusals;
   * ``batch_norm_train`` against JAX's;
   * the CUDA wrappers' operand packing (narrow channels) and the shared-kernel
     conv's refusal to run under autograd on the card.
@@ -133,6 +137,155 @@ def test_merged_route_matches_expert_sum_with_grads():
     ref = run(tmode.mode_conv_expert_sum)
     for a, b in zip(merged, ref):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-10)
+
+
+def _merge_as_kernels_compute(ws, g):
+    """The gate merge as ``csrc/gate_merge.cu`` writes it: each expert added
+    on its own support, the pools' 1^3 kernels scaled by 1/27 and 1/125."""
+    w5, w3, w1, wa3, wa5 = ws
+    ge = [g[:, e, None, None, None, None, :] for e in range(5)]
+    wn = ge[0] * w5 + ge[4] * wa5 / 125
+    wn[:, 1:4, 1:4, 1:4] += ge[1] * w3 + ge[3] * wa3 / 27
+    wn[:, 2:3, 2:3, 2:3] += ge[2] * w1
+    return wn
+
+
+def _merge_grads_as_kernels_compute(ws, g, dw):
+    """The gate merge's backward as ``csrc/gate_merge.cu`` writes it: the
+    five weight gradients from sums over the samples, the gate's from sums
+    over taps and input channels."""
+    w5, w3, w1, wa3, wa5 = ws
+    c3, c1 = dw[:, 1:4, 1:4, 1:4], dw[:, 2:3, 2:3, 2:3]
+    s3 = c3.sum((1, 2, 3), keepdim=True)
+    s5 = dw.sum((1, 2, 3), keepdim=True)
+
+    def over_n(e, d):
+        return (g[:, e, None, None, None, None, :] * d).sum(0)
+
+    def over_ti(a, b):
+        return (a * b).sum((1, 2, 3, 4))
+
+    grads = [over_n(0, dw), over_n(1, c3), over_n(2, c1), over_n(3, s3) / 27, over_n(4, s5) / 125]
+    dg = torch.stack([over_ti(dw, w5), over_ti(c3, w3), over_ti(c1, w1), over_ti(s3, wa3 / 27),
+                      over_ti(s5, wa5 / 125)], dim=1)
+    return grads + [dg]
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("ci,co", [(1, 4), (3, 4), (4, 1), (8, 8)])
+def test_gate_merge_persample_is_the_bank_einsum(n, ci, co):
+    """``GateMergePerSample`` on the CPU against autograd through the expert
+    bank and the einsum, the experts as views of (Co,Ci,k,k,k) parameters as
+    the net holds them: fp64 forward and gradients to 1e-12, the bf16 merged
+    kernels bit for bit; the forward against JAX's ``merge_kernels``; and
+    the sums the CUDA kernels compute (``csrc/gate_merge.cu``), in fp64,
+    against both."""
+    rng = np.random.default_rng(100 * n + 10 * ci + co)
+    ws = _experts(rng, ci, co)
+    g = np.asarray(jax.nn.softmax(npr(rng, (n, 5, co), 2.0), axis=1))
+    dw = npr(rng, (n, 5, 5, 5, ci, co))
+
+    def leaves(dtype):
+        params = [t(w).to(dtype).permute(4, 3, 0, 1, 2).contiguous().requires_grad_() for w in ws]
+        return params, tmode.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params))
+
+    params, ek = leaves(torch.float64)
+    gt = t(g).double().requires_grad_()
+    wn = tmode.gate_merge_persample(ek, gt, torch.float64)
+    wn.backward(t(dw).double())
+    rparams, rek = leaves(torch.float64)
+    rg = t(g).double().requires_grad_()
+    ref = torch.einsum("neo,edhwio->ndhwio", rg, tmode.expert_bank(rek))
+    ref.backward(t(dw).double())
+    ours = [p.grad for p in params] + [gt.grad]
+    theirs = [p.grad for p in rparams] + [rg.grad]
+    torch.testing.assert_close(wn, ref, rtol=1e-12, atol=1e-12)
+    for a, b in zip(ours, theirs):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+        assert a.is_contiguous()
+
+    ek64 = [t(w).double() for w in ws]
+    torch.testing.assert_close(_merge_as_kernels_compute(ek64, t(g).double()), ref.detach(),
+                               rtol=1e-12, atol=1e-12)
+    model = _merge_grads_as_kernels_compute(ek64, t(g).double(), t(dw).double())
+    for a, b in zip(model, [ek_grad.permute(2, 3, 4, 1, 0) for ek_grad in theirs[:5]] + theirs[5:]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+    _, ek32 = leaves(torch.float32)
+    with torch.no_grad():
+        bf = tmode.gate_merge_persample(ek32, t(g), torch.bfloat16)
+        want = torch.einsum("neo,edhwio->ndhwio", t(g), tmode.expert_bank(ek32)).to(torch.bfloat16)
+        assert bf.dtype == torch.bfloat16 and torch.equal(bf, want)
+        jax_wn = jmode.merge_kernels(jmode.ExpertKernels(*map(jnp.asarray, ws)), jnp.asarray(g))
+        np.testing.assert_allclose(tmode.gate_merge_persample(ek32, t(g), torch.float32).numpy(),
+                                   np.asarray(jax_wn), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,ci,co", [(1, 1, 4), (3, 8, 8)])
+def test_gate_merge_persample_matches_jax_vjp(n, ci, co):
+    """``GateMergePerSample``'s value and its six gradients (the five experts,
+    as views of (Co,Ci,k,k,k) parameters, and the gate) against
+    ``jax.vjp`` of JAX's ``merge_kernels`` on the same operands, fp64, to
+    1e-12."""
+    rng = np.random.default_rng(1000 * n + 10 * ci + co)
+    ws = [w.astype(np.float64) for w in _experts(rng, ci, co)]
+    g = npr(rng, (n, 5, co), 2.0).astype(np.float64)
+    dw = npr(rng, (n, 5, 5, 5, ci, co)).astype(np.float64)
+    with jax.enable_x64(True):
+        wn_ref, vjp = jax.vjp(lambda ek, gg: jmode.merge_kernels(jmode.ExpertKernels(*ek), gg),
+                              tuple(map(jnp.asarray, ws)), jnp.asarray(g))
+        dek_ref, dg_ref = vjp(jnp.asarray(dw))
+        refs = [np.asarray(wn_ref)] + [np.asarray(d) for d in dek_ref] + [np.asarray(dg_ref)]
+    params = [t(w).permute(4, 3, 0, 1, 2).contiguous().requires_grad_() for w in ws]
+    gt = t(g).requires_grad_()
+    wn = tmode.gate_merge_persample(
+        tmode.ExpertKernels(*(p.permute(2, 3, 4, 1, 0) for p in params)), gt, torch.float64)
+    wn.backward(t(dw))
+    ours = [wn.detach()] + [p.grad.permute(2, 3, 4, 1, 0) for p in params] + [gt.grad]
+    for k, (a, b) in enumerate(zip(ours, refs)):
+        assert a.dtype == torch.float64 and tuple(a.shape) == b.shape, k
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-12, atol=1e-12, err_msg=str(k))
+
+
+def test_gate_merge_plan_tiles_every_training_conv():
+    """The CUDA kernels' tiles at every MoDE conv of a batch-8 step at
+    mult_chan 32 and 4: at most 64 (i, o) pairs a tile, 64 output channels
+    where Co is above it, the input tiles covered once by the groups, the
+    samples once by the forward's blocks."""
+    for c in (32, 4):
+        chans = [c, 2 * c, 4 * c, 8 * c, 16 * c]
+        convs = [(1, c), (c, c)] + [(chans[k], chans[k + 1]) for k in range(4)] + \
+                [(chans[k + 1], chans[k + 1]) for k in range(4)] + \
+                [(2 * chans[k], chans[k]) for k in range(4)] + [(chans[k], chans[k]) for k in range(4)] + \
+                [(c, 1)]
+        assert len(convs) == 19
+        for ci, co in convs:
+            p = tmode.gate_merge_plan(8, ci, co)
+            assert p["bo"] * p["bi"] <= 64 and p["bo"] == min(co, 64)
+            assert p["otiles"] * p["bo"] >= co and p["itiles"] * p["bi"] >= ci
+            assert (p["groups"] - 1) * p["tiles_per_group"] < p["itiles"] <= \
+                p["groups"] * p["tiles_per_group"]
+            assert p["otiles"] * p["groups"] < 2 * 264 + p["otiles"]
+            assert 1 <= p["samples_per_block"] <= 8
+
+
+@pytest.mark.parametrize("bad", ["fp32_compute", "kernel_size_3", "fp64_experts"])
+def test_gate_merge_cuda_refuses_what_it_does_not_take(bad):
+    """The CUDA route checks its operands before anything reaches the card:
+    bf16 compute, kernel size 5 and fp32 experts, else a ValueError that
+    names what it takes."""
+    rng = np.random.default_rng(8)
+    ws = [t(w) for w in _experts(rng, 4, 8)]
+    g = torch.full((2, 5, 8), 0.2)
+    cdt, ks = torch.bfloat16, 5
+    if bad == "fp32_compute":
+        cdt = torch.float32
+    elif bad == "kernel_size_3":
+        ks = 3
+    else:
+        ws = [w.double() for w in ws]
+    with pytest.raises(ValueError, match="gate_merge_persample: the CUDA kernel"):
+        tmode._gate_merge_cuda(tmode.ExpertKernels(*ws), g, cdt, ks)
 
 
 def test_mode_conv_single_is_the_merged_conv_of_a_uniform_batch():
