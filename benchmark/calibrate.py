@@ -49,6 +49,7 @@ def main(argv=None, device=None, small=None) -> int:
     bench = spec.benchmark()
     w = spec.workload(args.workload, bench)
     limits = spec.limits(args.workload)
+    cfg = {**spec.config(w["config"]), **(small or {}).get("config", {})}
     mix = {**spec.traffic(w["traffic"]), **(small or {}).get("traffic", {})}
     kind = mix["kind"]
     grid = counts.tiling_patch_count(mix.get("volume_shape"), mix["patch_size"],
@@ -72,7 +73,7 @@ def main(argv=None, device=None, small=None) -> int:
                 line["control_correct"] = check.judge(line["control"], limits)[0]
             if seed in args.fault_seeds:
                 line["faults"], line["faults_correct"] = {}, {}
-                for fname, plant in faults.for_kind(kind, batches).items():
+                for fname, plant in faults.for_kind(kind, batches, cfg).items():
                     if fname == "unchanged_state":   # Adam never stepped: every leaf reads 1
                         nums = {n: 1.0 for n in names if "grad1" in n or "delta3" in n}
                     else:

@@ -41,21 +41,32 @@ class Window:
     started: float = 0.0
 
 
+def model_fields(cfg: dict) -> dict:
+    """The fields of the port's ``ModelConfig`` that the configuration names,
+    with its values: its ``model`` is the field ``name`` (its own ``name`` is
+    the configuration's)."""
+    from repmode_tpu_torch.config import ModelConfig
+
+    keys = {f.name: "model" if f.name == "name" else f.name for f in dataclasses.fields(ModelConfig)}
+    return {f: cfg[k] for f, k in keys.items() if k in cfg}
+
+
 def program_config(cfg: dict, mix: dict, seed: int, shrink=None):
-    """The CLI's Config for this cell, held to what the configuration states.
-    ``shrink`` (a test's small cell) sets the sizes the CLI has no flag for."""
+    """The CLI's Config for this cell, held to what the configuration states:
+    every ``ModelConfig`` field it names, the tasks, the dtype, the learning
+    rate, the mix's batch and patch. ``shrink`` (a test's small cell) sets the
+    sizes the CLI has no flag for."""
     from repmode_tpu_torch.cli.args import build_parser, to_config
 
     sizes = [f"--{k}={mix[k]}" for k in ("batch_size", "batch_size_eval") if k in mix]
     pc = to_config(build_parser().parse_args([*cfg["cli"], *mix["cli"], *sizes, "--seed", str(seed)]))
     if shrink:
         pc = shrink(pc)
-    stated = {"mult_chan": pc.model.mult_chan, "depth": pc.model.depth,
-              "kernel_size": pc.model.kernel_size, "in_channels": pc.model.in_channels,
-              "out_channels": pc.model.out_channels, "num_tasks": pc.num_tasks,
-              "compute_dtype": pc.train.compute_dtype, "lr": pc.train.lr,
-              "model": pc.model.name}
+    stated = {"num_tasks": pc.num_tasks, "compute_dtype": pc.train.compute_dtype, "lr": pc.train.lr}
     wrong = {k: (v, cfg[k]) for k, v in stated.items() if cfg[k] != v}
+    for f, v in model_fields(cfg).items():
+        if getattr(pc.model, f) != v:
+            wrong[f] = (getattr(pc.model, f), v)
     for k in ("batch_size", "batch_size_eval"):
         if k in mix and getattr(pc.train, k) != mix[k]:
             wrong[k] = (getattr(pc.train, k), mix[k])

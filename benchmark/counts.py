@@ -1,8 +1,9 @@
 """The work a cell needs, counted from its configuration's shapes.
 
-The FLOP model is a copy of ``repmode_tpu_torch/utils/flops.py`` (itself
-JAX's): the re-parameterized net, each conv 2 FLOPs a multiply-add, the
-gate and merge left out. A count depends on the configuration and the mix alone, never on the kernels that do the work.
+The convs are the net's as its reference model file lists them
+(``reference/models/<model>.py``: ``convs``), each 2 FLOPs a multiply-add.
+A count depends on the configuration and the mix alone, never on the kernels
+that do the work.
 
 ``same_convs`` lists the k^3 'same' convs of one patch; ``conv_bound_s``
 is the least time the chip could take for them: per conv, the larger of
@@ -17,7 +18,10 @@ at its full 700 W): ``PEAKS``.
 from __future__ import annotations
 
 from math import ceil
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
+
+from benchmark.reference import nets
+from benchmark.reference.nets import Conv
 
 # (substring of torch.cuda.get_device_name, bf16 FLOP/s, HBM bytes/s)
 PEAKS = (
@@ -36,34 +40,9 @@ def conv_flops(voxels: int, ci: int, co: int, taps: int) -> int:
     return 2 * voxels * ci * co * taps
 
 
-def _levels(cfg: dict, patch) -> Tuple[List[int], List[int]]:
-    d, h, w = patch
-    c = cfg["in_channels"] * cfg["mult_chan"]
-    chans = [c * 2 ** i for i in range(cfg["depth"] + 1)]
-    vox = [d * h * w // 8 ** i for i in range(cfg["depth"] + 1)]
-    return chans, vox
-
-
 def inference_flops_per_patch(cfg: dict, patch) -> int:
     """FLOPs of one forward of the net on one patch (batch 1)."""
-    k3 = cfg["kernel_size"] ** 3
-    chans, vox = _levels(cfg, patch)
-    depth = cfg["depth"]
-    total = 0
-    in_ch = cfg["in_channels"]
-    for i in range(depth):
-        total += conv_flops(vox[i], in_ch, chans[i], k3)
-        total += conv_flops(vox[i], chans[i], chans[i], k3)
-        total += conv_flops(vox[i + 1], chans[i], chans[i], 8)
-        in_ch = chans[i]
-    total += conv_flops(vox[depth], chans[depth - 1], chans[depth], k3)
-    total += conv_flops(vox[depth], chans[depth], chans[depth], k3)
-    for i in range(depth - 1, -1, -1):
-        total += conv_flops(vox[i], chans[i + 1], chans[i], 1)
-        total += conv_flops(vox[i], 2 * chans[i], chans[i], k3)
-        total += conv_flops(vox[i], chans[i], chans[i], k3)
-    total += conv_flops(vox[0], chans[0], cfg["out_channels"], k3)
-    return total
+    return sum(conv_flops(c.voxels, c.ci, c.co, c.taps) for c in nets.model(cfg).convs(cfg, patch))
 
 
 def tiling_patch_count(vol_shape, patch_size, overlap: float = 0.5) -> int:
@@ -85,30 +64,9 @@ def train_step_flops(cfg: dict, batch: int, patch) -> int:
     return 3 * batch * inference_flops_per_patch(cfg, patch)
 
 
-class Conv(NamedTuple):
-    voxels: int   # output positions of one patch
-    ci: int
-    co: int
-    taps: int
-    final: bool
-
-
 def same_convs(cfg: dict, patch) -> List[Conv]:
     """The k^3 'same' convs of one patch, in the order the net runs them."""
-    k3 = cfg["kernel_size"] ** 3
-    chans, vox = _levels(cfg, patch)
-    depth = cfg["depth"]
-    out, in_ch = [], cfg["in_channels"]
-    for i in range(depth):
-        out += [Conv(vox[i], in_ch, chans[i], k3, False), Conv(vox[i], chans[i], chans[i], k3, False)]
-        in_ch = chans[i]
-    out += [Conv(vox[depth], chans[depth - 1], chans[depth], k3, False),
-            Conv(vox[depth], chans[depth], chans[depth], k3, False)]
-    for i in range(depth - 1, -1, -1):
-        out += [Conv(vox[i], 2 * chans[i], chans[i], k3, False),
-                Conv(vox[i], chans[i], chans[i], k3, False)]
-    out.append(Conv(vox[0], chans[0], cfg["out_channels"], k3, True))
-    return out
+    return [c for c in nets.model(cfg).convs(cfg, patch) if c.same]
 
 
 def _bound(flops: float, nbytes: float, peak: Tuple[float, float]) -> float:

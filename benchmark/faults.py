@@ -9,10 +9,11 @@ Each is a context manager that patches the program while it is open:
 - ``half_batch`` (training): the step sees the first half of its batch, the
   loss a mean over that half; (serving) the forward predicts the first half
   of each patch batch and returns zeros for the rest;
-- ``expert_leaf_double``, ``expert_leaf_zero`` (training): the gradient of
-  one MoDE expert's weights (``EXPERT_LEAF``, a 5^3 expert the per-sample
-  weight-gradient kernel K4 computes) comes out doubled or zeroed, every
-  other leaf sound: a fault confined to a few leaves;
+- ``expert_leaf_double``, ``expert_leaf_zero`` (training, where the model's
+  reference file names a ``FAULT_LEAF``: for RepMode a 5^3 expert the
+  per-sample weight-gradient kernel K4 computes): that leaf's gradient comes
+  out doubled or zeroed, every other leaf sound: a fault confined to a few
+  leaves;
 - ``altered_answer`` (serving): one patch of every volume's fourth batch
   comes back as zeros from the forward that produced it.
 """
@@ -23,6 +24,7 @@ import contextlib
 
 import torch
 
+from benchmark.reference import nets
 
 @contextlib.contextmanager
 def _patched(obj, name, value):
@@ -50,18 +52,15 @@ def unchanged_state():
         yield
 
 
-EXPERT_LEAF = "encoder_block2.conv_more.conv2.expert_conv5x5_conv"
-
-
 @contextlib.contextmanager
-def expert_leaf_grad(scale: float):
+def expert_leaf_grad(leaf: str, scale: float):
     from repmode_tpu_torch.train import state as state_mod
 
     real = state_mod.create_train_state
 
     def create(*args, **kwargs):
         st = real(*args, **kwargs)
-        dict(st.net.named_parameters())[EXPERT_LEAF].register_hook(lambda g: g * scale)
+        dict(st.net.named_parameters())[leaf].register_hook(lambda g: g * scale)
         return st
 
     with _patched(state_mod, "create_train_state", create):
@@ -123,11 +122,15 @@ def altered_answer(batches_a_volume: int):
         yield
 
 
-def for_kind(kind: str, batches_a_volume: int = 16):
-    """{fault name: context manager factory} of the faults a cell of this kind can have."""
+def for_kind(kind: str, batches_a_volume: int, cfg: dict):
+    """{fault name: context manager factory} of the faults a cell of this kind
+    and configuration can have."""
     if kind == "train":
-        return {"unchanged_state": unchanged_state, "half_batch": half_batch_train,
-                "expert_leaf_double": lambda: expert_leaf_grad(2.0),
-                "expert_leaf_zero": lambda: expert_leaf_grad(0.0)}
+        out = {"unchanged_state": unchanged_state, "half_batch": half_batch_train}
+        leaf = nets.model(cfg).FAULT_LEAF
+        if leaf is not None:
+            out["expert_leaf_double"] = lambda: expert_leaf_grad(leaf, 2.0)
+            out["expert_leaf_zero"] = lambda: expert_leaf_grad(leaf, 0.0)
+        return out
     return {"half_batch": half_batch_serve,
             "altered_answer": lambda: altered_answer(batches_a_volume)}

@@ -1,8 +1,8 @@
 """The plain reference the benchmark holds the program to.
 
 Plain PyTorch in float32 with TF32 off (``precision.exact``): the nets
-(``nets.py``), the whole-volume prediction (``tiling.py``) and, here, the
-training step with Adam. It imports nothing of the program and takes nothing
+(``nets.py``, ``models/``), the whole-volume prediction (``tiling.py``) and,
+here, the training step with Adam. It imports nothing of the program and takes nothing
 the program made: the benchmark gives it the same seeded weights and inputs
 it gave the program, and it works out again what the program derived from
 them (the expert sums, BN, the tiling and the stitch, the gradients and

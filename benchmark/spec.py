@@ -6,9 +6,11 @@
 - a cell's limits on its comparison: ``benchmark/limits/<workload>.json``;
 - a per-layer metric: ``benchmark/metrics/<metric>.py``, whose ``read(t)``
   takes a ``trace.Reading`` and gives a number or None;
-- a bucket of device kernels: ``benchmark/buckets/<bucket>.json``.
+- a bucket of device kernels: ``benchmark/buckets/<bucket>.json``;
+- a configuration's reference net, conv list and fault leaf:
+  ``benchmark/reference/models/<model lower-cased>.py`` (``reference.nets``).
 
-A later cell, mix, metric or kernel adds a file here; no file is edited.
+A later cell, mix, metric, kernel or model adds a file here; no file is edited.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ import torch
 from benchmark import cell, counts, faults, run, spec, trace
 
 ROOT = Path(__file__).resolve().parents[2]
-WORKLOADS = ["repmode.train", "repmode.serve"]
+WORKLOADS = [w["name"] for w in spec.benchmark()["workloads"]]
 
 
 def small_cell(name):
@@ -46,9 +46,11 @@ def test_sound_run_is_correct(name):
 
 
 def _faults(name):
-    kind = spec.traffic(spec.workload(name, spec.benchmark())["traffic"])["kind"]
+    w = spec.workload(name, spec.benchmark())
+    kind = spec.traffic(w["traffic"])["kind"]
+    cfg = {**spec.config(w["config"]), **small_cell(name)["config"]}
     grid = counts.tiling_patch_count((16, 40, 48), (16, 32, 32))
-    return [(name, f, plant) for f, plant in faults.for_kind(kind, -(-grid // 2)).items()]
+    return [(name, f, plant) for f, plant in faults.for_kind(kind, -(-grid // 2), cfg).items()]
 
 
 @pytest.mark.parametrize("name,fault,plant", [f for w in WORKLOADS for f in _faults(w)],

@@ -1,21 +1,26 @@
 """The yardstick's counts: FLOPs and bytes by hand for one conv, the whole
 volume's FLOPs against the program's FLOP model, and the seeded weights
-against the program's state layout."""
+against the program's state layout, for every configuration; and RepMode's
+counts, bounds and seeded weights pinned to the last digit."""
+
+import hashlib
 
 import pytest
 import torch
 
-from benchmark import counts, data, spec
+from benchmark import cell, counts, data, spec
 from benchmark.reference import nets
 
 H100 = counts.peaks("NVIDIA H100 80GB HBM3")
+NAMES = [c["name"] for c in spec.benchmark()["configs"]]
 
 
 def test_one_conv_by_hand():
     # 32 -> 32 channels, 5^3 taps, one 32x128x128 patch
     vox = 32 * 128 * 128
     assert counts.conv_flops(vox, 32, 32, 125) == 2 * 524288 * 32 * 32 * 125
-    cfg = {"in_channels": 1, "mult_chan": 32, "depth": 1, "kernel_size": 5, "out_channels": 1,
+    cfg = {"model": "RepMode", "in_channels": 1, "mult_chan": 32, "depth": 1, "kernel_size": 5,
+           "out_channels": 1,
            "conv_dtypes": {"input": "bfloat16", "weight": "bfloat16", "output": "bfloat16",
                            "final_output": "float32", "weight_grad": "float32",
                            "per_sample_weights": True}}
@@ -57,22 +62,23 @@ def test_whole_volume_flops():
     assert counts.train_step_flops(cfg, 8, (32, 128, 128)) == 26_216_748_810_240
 
 
-def test_same_count_as_the_program_flops_model():
+@pytest.mark.parametrize("name", NAMES)
+def test_same_count_as_the_program_flops_model(name):
     from repmode_tpu_torch.config import ModelConfig
     from repmode_tpu_torch.utils import flops
 
-    cfg = spec.config("repmode")
+    cfg = spec.config(name)
     assert counts.inference_flops_per_patch(cfg, (32, 128, 128)) == \
-        flops.inference_flops_per_patch(ModelConfig(), (32, 128, 128))
+        flops.inference_flops_per_patch(ModelConfig(**cell.model_fields(cfg)), (32, 128, 128))
 
 
-@pytest.mark.parametrize("name,model", [("repmode", "RepMode")])
-def test_seeded_weights_load_into_the_program(name, model):
+@pytest.mark.parametrize("name", NAMES)
+def test_seeded_weights_load_into_the_program(name):
     from repmode_tpu_torch.config import Config, ModelConfig
     from repmode_tpu_torch.models import build_model
 
     cfg = {**spec.config(name), "mult_chan": 4, "depth": 2}
-    pc = Config(model=ModelConfig(name=model, mult_chan=4, depth=2))
+    pc = Config(model=ModelConfig(**cell.model_fields(cfg)))
     net = build_model(pc, None, "cpu")
     state = data.seeded_weights(cfg, {}, 2**31 + 5, torch.device("cpu"), [])
     net.load_state_dict(state, strict=True)
@@ -85,9 +91,62 @@ def test_seeded_weights_load_into_the_program(name, model):
             assert float(state[e.name].abs().max()) <= bound
 
 
-@pytest.mark.parametrize("name", ["repmode"])
+@pytest.mark.parametrize("name", NAMES)
 def test_parameter_count_at_full_width(name):
     cfg = spec.config(name)
     entries = {e.name: e for e in nets.spec(cfg)}
     n = sum(int(torch.Size(entries[k].shape).numel()) for k in nets.parameter_names(cfg))
     assert n == cfg["parameters"]
+
+
+def _repmode():
+    return spec.config("repmode"), spec.traffic("serve_12task"), spec.traffic("train_hostsampler")
+
+
+def _parameters(cfg):
+    entries = {e.name: e for e in nets.spec(cfg)}
+    return sum(int(torch.Size(entries[k].shape).numel()) for k in nets.parameter_names(cfg))
+
+
+PINS = {
+    "inference_flops_per_patch": (lambda c, s, t: counts.inference_flops_per_patch(c, (32, 128, 128)),
+                                  1_092_364_533_760),
+    "tiled_inference_flops": (lambda c, s, t: counts.tiled_inference_flops(
+        c, s["volume_shape"], s["patch_size"], s["overlap"]), 137_637_931_253_760),
+    "train_step_flops": (lambda c, s, t: counts.train_step_flops(c, t["batch_size"],
+                                                                 t["patch_size"]),
+                         26_216_748_810_240),
+    "same_convs": (lambda c, s, t: len(counts.same_convs(c, (32, 128, 128))), 19),
+    "serve_conv_bound_s": (lambda c, s, t: counts.serve_conv_bound_s(c, s, H100),
+                           0.1399730771518827),
+    "train_conv_bound_s": (lambda c, s, t: counts.train_conv_bound_s(c, t, H100),
+                           0.02721097653220169),
+    "spec_entries": (lambda c, s, t: len(nets.spec(c)), 309),
+    "parameter_names": (lambda c, s, t: len(nets.parameter_names(c)), 193),
+    "parameters": (lambda c, s, t: _parameters(c), 123_877_633),
+}
+
+
+@pytest.mark.parametrize("what", sorted(PINS))
+def test_repmode_pinned(what):
+    """Exact: a move of the net's code that reorders or recounts shows here."""
+    fn, value = PINS[what]
+    assert fn(*_repmode()) == value
+
+
+@pytest.mark.parametrize("widths,digest", [
+    ({"mult_chan": 4, "depth": 2},
+     "4db7e778d2aeff6a7f40bf7669466e455afaee53c7a22aab443d4af32398fd17"),
+    ({}, "0541707f87ea0f8ac58b3f8ba1e478e603e194cbe412d5e48105cad585bc3dc8"),
+], ids=["small", "published"])
+def test_repmode_seeded_weights_pinned(widths, digest):
+    """SHA-256 over each entry in ``spec`` order, its name then its bytes:
+    the one flat draw follows that order, so a reordered spec changes it."""
+    cpu = torch.device("cpu")
+    cfg = {**spec.config("repmode"), **widths}
+    state = data.weights(cfg, data.generator(2**31 + 5, cpu), cpu)
+    h = hashlib.sha256()
+    for e in nets.spec(cfg):
+        h.update(e.name.encode())
+        h.update(state[e.name].contiguous().numpy().tobytes())
+    assert h.hexdigest() == digest

@@ -35,12 +35,13 @@ def test_harness_imports_no_jax(path):
     assert not top_level_imports(path) & NEVER
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(HERE / "reference")))
 def test_reference_imports_nothing_of_the_program(path):
     found = top_level_imports(path)
     assert "repmode_tpu_torch" not in found and not found & NEVER
-    assert found <= {"__future__", "benchmark", "contextlib", "math", "numpy", "torch", "typing"}
+    assert found <= {"__future__", "benchmark", "contextlib", "functools", "importlib", "math",
+                     "numpy", "pathlib", "torch", "typing"}
 
 
 def test_whole_name_compare(monkeypatch):

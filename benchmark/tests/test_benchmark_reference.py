@@ -9,12 +9,13 @@ import pytest
 import torch
 
 import benchmark.reference as reference
-from benchmark import data, spec
+from benchmark import cell, data, spec
 from benchmark.reference import nets, tiling
 from benchmark.reference.precision import FP32, FP8
 
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "goldens" / "repmode_small.npz"
 SMALL = {"mult_chan": 2, "depth": 4, "num_tasks": 3}
+NAMES = [c["name"] for c in spec.benchmark()["configs"]]
 
 
 @pytest.fixture(scope="module")
@@ -70,8 +71,8 @@ def _small(name):
     return cfg, torch.device("cpu")
 
 
-@pytest.mark.parametrize("name,model", [("repmode", "RepMode")])
-def test_train_steps_against_the_port_in_fp32(name, model):
+@pytest.mark.parametrize("name", NAMES)
+def test_train_steps_against_the_port_in_fp32(name):
     """Three fp32 steps with Adam: the port (fp32, its expert sum or merged
     route on the CPU) and the reference agree to round-off."""
     from repmode_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -80,7 +81,7 @@ def test_train_steps_against_the_port_in_fp32(name, model):
 
     cfg, dev = _small(name)
     state = data.seeded_weights(cfg, {}, 7, dev, [])
-    pc = Config(model=ModelConfig(name=model, mult_chan=4, depth=2, train_s2d=False),
+    pc = Config(model=ModelConfig(**{**cell.model_fields(cfg), "train_s2d": False}),
                 train=TrainConfig(compute_dtype="float32", lr=cfg["lr"]))
     ts = create_train_state(pc, None, dev)
     ts.net.load_state_dict(state, strict=True)
@@ -88,7 +89,7 @@ def test_train_steps_against_the_port_in_fp32(name, model):
     rng = np.random.default_rng(0)
     batches = [{"signal": rng.standard_normal((2, 16, 16, 16, 1)).astype(np.float32),
                 "target": rng.standard_normal((2, 16, 16, 16, 1)).astype(np.float32),
-                "task": np.array([t, (t + 5) % 12], np.int32)} for t in range(3)]
+                "task": np.array([t, (t + 5) % cfg["num_tasks"]], np.int32)} for t in range(3)]
     losses = [float(step({k: torch.from_numpy(v) for k, v in b.items()})["loss"]) for b in batches]
     ref = reference.train_steps(state, batches, cfg)
     np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
@@ -97,7 +98,7 @@ def test_train_steps_against_the_port_in_fp32(name, model):
         assert delta == pytest.approx(ref["delta"][n], rel=2e-2, abs=1e-7), n
 
 
-@pytest.mark.parametrize("name", ["repmode"])
+@pytest.mark.parametrize("name", NAMES)
 def test_whole_volume_against_the_port_and_the_control(name):
     """The stitched prediction: the port in fp32 to round-off, the float8
     control far off."""
@@ -110,8 +111,9 @@ def test_whole_volume_against_the_port_and_the_control(name):
     vols = [torch.randn((16, 40, 48), generator=torch.Generator().manual_seed(s)).numpy()
             for s in range(12)]
     state = data.seeded_weights(cfg, mix, 11, dev, vols)
-    assert float(state["encoder_block1.conv_more.conv1.subsequent_layer.0.running_var"][0]) != 1.0
-    pc = Config(model=ModelConfig(name=cfg["model"], mult_chan=4, depth=2, train_s2d=False),
+    first_var = next(e.name for e in nets.spec(cfg) if e.name.endswith(".running_var"))
+    assert float(state[first_var][0]) != 1.0
+    pc = Config(model=ModelConfig(**{**cell.model_fields(cfg), "train_s2d": False}),
                 train=TrainConfig(compute_dtype="float32", batch_size_eval=2,
                                   patch_size=(16, 32, 32)),
                 eval=EvalConfig(patch_size=(16, 32, 32), s2d=False))
