@@ -16,8 +16,15 @@ timing``), and prints one JSON line (also written to ``--out``):
   ``merge_bwd_ms.train``,
   ``conv_glue_ms.train`` (``rm.mode.conv``'s device time outside the conv
   buckets), ``prepare_ms.serve``, ``h2d_ms.serve``, ``stitch_ms.serve``;
+  and in a cell of a plain U-Net (``UNet``, ``fnet_nn_3d``), whose convs and
+  BNs open ``rm.unet.conv`` and ``rm.unet.bn``, ``unet_conv_glue_ms.train``
+  and ``.serve`` (``rm.unet.conv``'s device time outside the conv buckets:
+  the casts, the bias, K1's padding) and ``unet_bn_ms.train`` and
+  ``.serve`` (device time inside ``rm.unet.bn``; in training the forward's
+  alone, the backward runs under no span);
 - ``checks``: the readings' own consistency: the conv buckets' time inside
-  ``rm.mode.conv`` against their time in the window (training), every idle
+  ``rm.mode.conv`` against their time in the window (training; inside
+  ``rm.unet.conv`` at most that time), every idle
   gap given to one span or ``"(none)"``, one ``rm.step`` / ``rm.loop.h2d``
   or ``rm.predict`` / ``rm.predict.h2d`` a unit, and the stitch inside the
   serving glue.
@@ -143,19 +150,26 @@ def readings(kind: str, units: int, spans: dict, step_idle_s: float, conv_bucket
     def get(name, key):
         return spans.get(PREFIX + name, {}).get(key, 0.0)
 
+    def glue(name):   # device time inside the span, outside the conv buckets
+        conv = spans.get(PREFIX + name, {}).get("device_by_bucket", {})
+        return get(name, "device_s") - sum(conv.get(b, 0.0) for b in conv_buckets)
+
     per = 1e3 / units
     if kind == "train":
-        conv = spans.get("rm.mode.conv", {}).get("device_by_bucket", {})
-        return {"sampler_ms.train": get("sampler.wait", "host_s") * per,
-                "h2d_ms.train": get("loop.h2d", "host_s") * per,
-                "step_idle_ms.train": step_idle_s * per,
-                "merge_fwd_ms.train": get("mode.merge", "device_s") * per,
-                "merge_bwd_ms.train": get("mode.merge_bwd", "device_s") * per,
-                "conv_glue_ms.train": (get("mode.conv", "device_s")
-                                       - sum(conv.get(b, 0.0) for b in conv_buckets)) * per}
-    return {"prepare_ms.serve": get("reparam.prepare", "host_s") * per,
-            "h2d_ms.serve": get("predict.h2d", "host_s") * per,
-            "stitch_ms.serve": get("predict.stitch", "device_s") * per}
+        out = {"sampler_ms.train": get("sampler.wait", "host_s") * per,
+               "h2d_ms.train": get("loop.h2d", "host_s") * per,
+               "step_idle_ms.train": step_idle_s * per,
+               "merge_fwd_ms.train": get("mode.merge", "device_s") * per,
+               "merge_bwd_ms.train": get("mode.merge_bwd", "device_s") * per,
+               "conv_glue_ms.train": glue("mode.conv") * per}
+    else:
+        out = {"prepare_ms.serve": get("reparam.prepare", "host_s") * per,
+               "h2d_ms.serve": get("predict.h2d", "host_s") * per,
+               "stitch_ms.serve": get("predict.stitch", "device_s") * per}
+    if PREFIX + "unet.conv" in spans:
+        out[f"unet_conv_glue_ms.{kind}"] = glue("unet.conv") * per
+        out[f"unet_bn_ms.{kind}"] = get("unet.bn", "device_s") * per
+    return out
 
 
 def checks(kind: str, units: int, trace: dict, metrics: dict, conv_buckets) -> dict:
@@ -172,8 +186,13 @@ def checks(kind: str, units: int, trace: dict, metrics: dict, conv_buckets) -> d
     out["idle_s_sum"] = [idle, want, abs(idle - want) <= 0.01 * max(want, 1e-9)]
     if kind == "train":
         inside = spans.get("rm.mode.conv", {}).get("device_by_bucket", {})
+        unet = spans.get("rm.unet.conv", {}).get("device_by_bucket", {})
         for b in conv_buckets:
             got, whole = inside.get(b, 0.0), trace["bucket_s"].get(b, 0.0)
+            if unet:   # the forward's convs alone: autograd's backward opens no span
+                got = unet.get(b, 0.0)
+                out[f"unet_conv_within {b}"] = [got, whole, got <= whole]
+                continue
             out[f"conv_inside {b}"] = [got, whole, abs(got - whole) <= 0.01 * whole]
         n_a_unit("rm.step")
         n_a_unit("rm.loop.h2d")

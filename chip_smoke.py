@@ -66,6 +66,13 @@ kernels):
                 only in val/test), the tiled predictor on a 32x256x256
                 volume (Mvox/s, K1 19 launches a batch, held against the same
                 net through conv3d_same_autograd);
+  fnet3d        pytorch_fnet's fnet_nn_3d (cli --nn_module fnet_nn_3d, 3^3
+                kernels with bias) at full width: K1 at each of the 19 'same'
+                convs its eval forward calls at batch 8 (recorded from the
+                net: 27 taps, bias epilogue, fp32 in and out), held against
+                its plain version and timed as in the kernel phase; then the
+                unet phase's checks for it (train step, cli.train then
+                cli.evaluate, the tiled predictor with K1 19 launches a batch);
   bank          the device bank under on_device_pipeline auto: run_experiment
                 with the native net from a ragged train store of 24 volumes
                 (mostly 32x624x924, 3.54 GB padded, under the 4 GiB budget):
@@ -196,7 +203,7 @@ from repmode_tpu_torch.data.sampler import PatchSampler
 from repmode_tpu_torch.data.store import VolumeRecord, VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
-from repmode_tpu_torch.models import build_model, reparam
+from repmode_tpu_torch.models import build_model, kernel_size_of, reparam
 from repmode_tpu_torch.models import unet as unet_mod
 from repmode_tpu_torch.models.repmode import MoDEConv, RepModeNet
 from repmode_tpu_torch.ops.conv3d import (
@@ -2110,15 +2117,18 @@ def seeded_unet(cfg, seed):
     return net.eval()
 
 
-def unet_phase(num_convs, card):
-    """The UNet baseline at full width (mult_chan 32, depth 4, 5^3 kernels,
-    bf16 compute, batch 8 of 32x128x128): its train step (no port kernel
-    launches; cuDNN convs), cli.train --nn_module UNet then cli.evaluate on
-    its .p (the same test MSE), and the tiled predictor on a 32x256x256
-    volume (K1 at all 19 'same' convs of a batch, held against the same
-    net's conv3d_same_autograd forward)."""
+def unet_phase(num_convs, card, name="UNet", tag="unet"):
+    """A plain U-Net of the registry (``name``: the UNet baseline, 5^3
+    kernels, or fnet_nn_3d, 3^3 kernels with bias; phases and checks
+    prefixed ``tag``) at full width (mult_chan 32, depth 4, bf16 compute,
+    batch 8 of 32x128x128): its train step (no port kernel launches; cuDNN
+    convs), cli.train --nn_module <name> then cli.evaluate on its .p (the
+    same test MSE), and the tiled predictor on a 32x256x256 volume (K1 at
+    all 19 'same' convs of a batch, held against the same net's
+    conv3d_same_autograd forward)."""
     t_phase = time.perf_counter()
-    cfg = Config(model=ModelConfig(name="UNet"), data=DataConfig(adopted_datasets=UNET_TASKS))
+    cfg = Config(model=ModelConfig(name=name, kernel_size=kernel_size_of(name)),
+                 data=DataConfig(adopted_datasets=UNET_TASKS))
 
     # ---- the train step
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 80), "cuda")
@@ -2153,22 +2163,22 @@ def unet_phase(num_convs, card):
               "params_nonfinite_grad": [k for k, v in params.items() if v.grad is not None
                                         and not bool(torch.isfinite(v.grad).all())],
               "params_unchanged": [k for k, v in params.items() if torch.equal(v, init[k])]}
-    emit({"phase": "unet_step", "card": card, "batch": 8, "patch": list(PATCH),
+    emit({"phase": f"{tag}_step", "card": card, "batch": 8, "patch": list(PATCH),
           "params": sum(v.numel() for v in params.values()),
           "step_ms_median": times[len(times) // 2], "step_ms_all": times,
           "step_ms_median_cudnn_benchmark": bench[len(bench) // 2],
           "step_ms_all_cudnn_benchmark": bench,
           "peak_memory_gb": peak_gb, "launches_in_6_steps": counts, **prof, **report})
-    check(all(v == 0 for v in counts.values()), "unet: a port kernel launched in a train step")
-    check_params("unet", report)
+    check(all(v == 0 for v in counts.values()), f"{tag}: a port kernel launched in a train step")
+    check_params(tag, report)
     del state, step, init, params, batch
     torch.cuda.empty_cache()
 
-    # ---- cli.train --nn_module UNet, then cli.evaluate on its .p
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_unet_")
+    # ---- cli.train --nn_module <name>, then cli.evaluate on its .p
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     try:
         exp_dir = os.path.join(tmp, "train")
-        common = ["--synthetic", "--debugging", "--nn_module", "UNet",
+        common = ["--synthetic", "--debugging", "--nn_module", name,
                   "--adopted_datasets", *UNET_TASKS]
         reset_counts()
         t0 = time.perf_counter()
@@ -2186,7 +2196,7 @@ def unet_phase(num_convs, card):
         eval_counts = kernel_counts()
         # 2 synthetic volumes a task in val and in test, one batch of 8 each
         k1_train = 2 * (2 * len(UNET_TASKS)) * num_convs
-        out = {"phase": "unet_cli", "card": card, "train_seconds": train_s,
+        out = {"phase": f"{tag}_cli", "card": card, "train_seconds": train_s,
                "steps": res["state"].step, "train_launches": train_counts,
                "k1_expected_val_test": k1_train, "evaluate_seconds": eval_s,
                "evaluate_launches": eval_counts, "train_loss": res["train_log"]["loss/epoch"],
@@ -2194,12 +2204,12 @@ def unet_phase(num_convs, card):
                "evaluate_test_mse": log["metric_test/MSE"],
                "equal": log["metric_test/MSE"] == res["test_log"]["metric_test/MSE"]}
         emit(out)
-        check(res["state"].step == 2, "unet: cli.train steps")
+        check(res["state"].step == 2, f"{tag}: cli.train steps")
         check(train_counts["conv3d_same"] == k1_train and sum(train_counts.values()) == k1_train,
-              "unet: cli.train launched a kernel other than K1, or K1 outside val/test")
-        check(eval_counts["conv3d_same"] == k1_train // 2, "unet: cli.evaluate K1 launches")
+              f"{tag}: cli.train launched a kernel other than K1, or K1 outside val/test")
+        check(eval_counts["conv3d_same"] == k1_train // 2, f"{tag}: cli.evaluate K1 launches")
         check(np.isfinite(out["train_loss"]) and out["equal"],
-              "unet: cli.evaluate's test MSE differs from the train run's test pass")
+              f"{tag}: cli.evaluate's test MSE differs from the train run's test pass")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2220,15 +2230,15 @@ def unet_phase(num_convs, card):
     launches = conv3d_same.launches
     serve_prof, _ = device_breakdown(lambda: pred(served, vol), top=8)
 
-    def autograd_conv(x, w, compute_dtype=None):
-        return conv3d_mod.conv3d_same_autograd(x, w, compute_dtype=compute_dtype).float()
+    def autograd_conv(x, w, bias=None, compute_dtype=None):
+        return conv3d_mod.conv3d_same_autograd(x, w, bias, compute_dtype=compute_dtype).float()
 
     with mock.patch.object(unet_mod, "conv3d_same", autograd_conv):
         y_ref = TiledPredictor(cfg)(served, vol)
     torch.cuda.synchronize()
     rel = rel_l2(y, y_ref)
     batches = pred.grid(tuple(vol.shape))[0].shape[0]
-    emit({"phase": "unet_predictor", "card": card, "volume": list(vol.shape),
+    emit({"phase": f"{tag}_predictor", "card": card, "volume": list(vol.shape),
           "patches": pred.num_patches(vol.shape), "batches": batches, "seconds": secs,
           "mvox_per_s": vol.numel() / secs / 1e6, "k1_launches": launches,
           "k1_launches_per_batch": launches / batches, "rel_l2_vs_conv3d_same_autograd": rel,
@@ -2236,12 +2246,51 @@ def unet_phase(num_convs, card):
           "tolerance": "rel L2 <= 1e-2 (K1's fp32 conv outputs against cuDNN's bf16 ones)",
           "profile": serve_prof, "phase_seconds": time.perf_counter() - t_phase})
     check(bool(torch.isfinite(y).all()) and y.shape == vol.shape and float(y.std()) > 0,
-          "unet: bad prediction")
-    check(launches == batches * num_convs, f"unet: K1 launched {launches} times in {batches} "
+          f"{tag}: bad prediction")
+    check(launches == batches * num_convs, f"{tag}: K1 launched {launches} times in {batches} "
                                            f"batches, expected {num_convs} a batch")
-    check(rel <= 1e-2, f"unet: K1 vs conv3d_same_autograd prediction rel L2 {rel}")
+    check(rel <= 1e-2, f"{tag}: K1 vs conv3d_same_autograd prediction rel L2 {rel}")
     del net, served, pred
     torch.cuda.empty_cache()
+
+
+FNET3D = "fnet_nn_3d"
+
+
+def fnet3d_convs(batch=8):
+    """fnet_nn_3d's 'same' convs as its eval forward calls K1 (name, input
+    shape, Co, taps, epilogue, dtypes), recorded from one forward of the
+    full-width net (bf16 compute) on a batch of ``batch`` PATCH patches,
+    named in launch order."""
+    cfg = Config(model=ModelConfig(name=FNET3D, kernel_size=kernel_size_of(FNET3D)),
+                 data=DataConfig(adopted_datasets=UNET_TASKS))
+    net = seeded_unet(cfg, SEED + 84)
+    calls = []
+    with torch.no_grad(), mock.patch.object(unet_mod, "conv3d_same", recording_k1(calls)):
+        net(torch.randn((batch, *PATCH, 1), device="cuda"))
+    torch.cuda.synchronize()
+    del net
+    torch.cuda.empty_cache()
+    return [dict(c, name=f"{FNET3D}.conv{i}", bias_relu=False) for i, c in enumerate(calls)]
+
+
+def fnet3d_phase(card):
+    """pytorch_fnet's fnet_nn_3d (--nn_module fnet_nn_3d) at full width: K1
+    at each of the 19 'same' convs its eval forward calls at batch 8 (27
+    taps, the bias in the epilogue, fp32 in and out), held against the plain
+    version as the kernel phase holds RepMode's; then unet_phase for it
+    (train step, cli.train then cli.evaluate, the tiled predictor with K1 19
+    launches a batch)."""
+    convs = fnet3d_convs()
+    emit({"phase": "fnet3d_convs", "convs": len(convs),
+          "shapes": [[list(c["x"]), c["co"]] for c in convs]})
+    check(len(convs) == 19, f"fnet3d: {len(convs)} K1 calls a forward, expected 19")
+    check(all(c["taps"] == (3, 3, 3) and c["epilogue"] == "bias" and c["in_dtype"] == "float32"
+              and c["out_dtype"] == "float32" for c in convs),
+          "fnet3d: a K1 call is not 27 taps with a bias epilogue, fp32 in and out")
+    kernel_phase(convs, phase="fnet3d_kernel")
+    torch.cuda.empty_cache()
+    unet_phase(len(convs), card, name=FNET3D, tag="fnet3d")
 
 
 # ------------------------------------------------------ the device bank (A8b)
@@ -3176,6 +3225,7 @@ def main(argv=None):
                   "train_faults": lambda: train_faults_phase(len(convs), num_tasks=4),
                   "ingest": lambda: ingest_phase(len(convs), card),
                   "unet": lambda: unet_phase(len(convs), card),
+                  "fnet3d": lambda: fnet3d_phase(card),
                   "bank": lambda: bank_phase(len(convs), card),
                   "dp": lambda: dp_phase(len(convs), card),
                   "scripts": lambda: scripts_phase(len(convs), card),
@@ -3219,6 +3269,8 @@ def main(argv=None):
     ingest_phase(len(convs), card)
     torch.cuda.empty_cache()
     unet_phase(len(convs), card)
+    torch.cuda.empty_cache()
+    fnet3d_phase(card)
     torch.cuda.empty_cache()
     bank_phase(len(convs), card)
     torch.cuda.empty_cache()

@@ -13,6 +13,10 @@ routes yet (ROADMAP A12). The s2d routes are reached through a ``Config``
 ``--num_devices N`` > 1 runs N data-parallel ranks (``launch_ranks``): one
 card a rank over NCCL under ``--device cuda``, or N gloo ranks on the CPU
 under ``--device cpu``.
+
+The kernel size is the one ``--nn_module``'s published module fixes
+(``models.kernel_size_of``: 3 for ``fnet_nn_3d``, else ``ModelConfig``'s
+5); the reference CLI has no flag for it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from repmode_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
 )
+from repmode_tpu_torch.models import kernel_size_of
 from repmode_tpu_torch.parallel.mesh import launch
 
 
@@ -110,6 +115,7 @@ def to_config(ns: argparse.Namespace, exp_name: Optional[str] = None) -> Config:
     return Config(
         model=ModelConfig(
             name=ns.nn_module, mult_chan=ns.mult_chan,
+            kernel_size=kernel_size_of(ns.nn_module),
             train_impl=ns.train_impl, train_s2d=False,
         ),
         train=TrainConfig(

@@ -24,6 +24,11 @@ The 'same' convs take one of two routes, both the JAX package's XLA
 
 Activations between convs are fp32, as in JAX: every conv, down- and
 upsample rounds its input to the compute dtype itself.
+
+``_conv`` and ``_bn_relu`` are the 'same' conv and the BN + ReLU of every
+plain U-Net of the registry (this one and ``models/fnet.py``), each inside a
+span of the port's tracing (``utils/timing``): ``rm.unet.conv`` (the conv
+with its casts and bias) and ``rm.unet.bn``.
 """
 
 from __future__ import annotations
@@ -42,15 +47,26 @@ from repmode_tpu_torch.ops.conv3d import (
     downsample2x_conv,
     upsample2x_convt,
 )
+from repmode_tpu_torch.utils.timing import span
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, compute_dtype: Optional[torch.dtype],
-          training: bool) -> torch.Tensor:
-    """'same' conv of x (N,D,H,W,Ci) with w (k,k,k,Ci,Co) -> fp32 (fp64 stays fp64)."""
-    if not training and not torch.is_grad_enabled():
-        return conv3d_same(x, w, compute_dtype=compute_dtype)
-    y = conv3d_same_autograd(x, w, compute_dtype=compute_dtype)
-    return y.to(torch.promote_types(y.dtype, torch.float32))
+          training: bool, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'same' conv of x (N,D,H,W,Ci) with w (k,k,k,Ci,Co) and an optional
+    bias (Co,) -> fp32 (fp64 stays fp64); in eval mode the bias is K1's
+    epilogue."""
+    with span("unet.conv"):
+        if not training and not torch.is_grad_enabled():
+            return conv3d_same(x, w, bias, compute_dtype=compute_dtype)
+        y = conv3d_same_autograd(x, w, bias, compute_dtype=compute_dtype)
+        return y.to(torch.promote_types(y.dtype, torch.float32))
+
+
+def _bn_relu(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
+    """BN (``models/repmode._bn``: batch statistics in training, running
+    ones in eval mode), then ReLU."""
+    with span("unet.bn"):
+        return torch.relu(_bn(y, bn))
 
 
 class ConvBNReLU(nn.Module):
@@ -68,8 +84,8 @@ class ConvBNReLU(nn.Module):
                                  momentum=cfg.bn_momentum if cfg else 0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _conv(x, self.w.permute(2, 3, 4, 1, 0), self.compute_dtype, self.training)
-        return torch.relu(_bn(y, self.bn))
+        return _bn_relu(_conv(x, self.w.permute(2, 3, 4, 1, 0), self.compute_dtype,
+                              self.training), self.bn)
 
 
 class UNet3D(nn.Module):
@@ -132,12 +148,11 @@ class UNet3D(nn.Module):
             skip = subnet(h, f"enc{i}")
             skips.append(skip)
             w_down = getattr(self, f"down{i}_w").permute(2, 3, 4, 1, 0)
-            h = torch.relu(_bn(downsample2x_conv(skip, w_down, compute_dtype=cdt),
-                               getattr(self, f"down{i}_bn")))
+            h = _bn_relu(downsample2x_conv(skip, w_down, compute_dtype=cdt),
+                         getattr(self, f"down{i}_bn"))
         h = subnet(h, "bottle")
         for i in range(cfg.depth, 0, -1):
             w_up = getattr(self, f"up{i}_w").permute(2, 3, 4, 0, 1)
-            h = torch.relu(_bn(upsample2x_convt(h, w_up, compute_dtype=cdt),
-                               getattr(self, f"up{i}_bn")))
+            h = _bn_relu(upsample2x_convt(h, w_up, compute_dtype=cdt), getattr(self, f"up{i}_bn"))
             h = subnet(torch.cat([skips[i - 1], h.to(skips[i - 1].dtype)], dim=-1), f"dec{i}")
         return _conv(h, self.out_w.permute(2, 3, 4, 1, 0), cdt, self.training)

@@ -38,7 +38,8 @@ Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
 
 ``conv3d_same_autograd`` is no kernel port: it is the XLA conv of the JAX
 package's differentiated expert sum as a plain PyTorch op (``F.conv3d``,
-autograd gives the backward), the train-mode counterpart of K1.
+autograd gives the backward), the train-mode counterpart of K1; it counts
+its calls in ``conv3d_same_autograd.calls``.
 
 The k=2, s=2 down/upsample convs have non-overlapping windows, so they are
 reshapes around one matrix product, as in the JAX package; so is the
@@ -148,7 +149,11 @@ conv3d_same.launches = 0
 
 
 def conv3d_same_autograd(
-    x: torch.Tensor, w: torch.Tensor, *, compute_dtype: Optional[torch.dtype] = None
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """'same' stride-1 3-D conv on a differentiated path: the port of the XLA
     op ``repmode_tpu/ops/conv3d.py:conv3d_same`` with ``accum_dtype=None``.
@@ -157,16 +162,23 @@ def conv3d_same_autograd(
     are rounded to ``compute_dtype`` (without one, to their common dtype) and
     the output is in that dtype, as JAX's AD-safe conv rounds its output.
     ``F.conv3d`` runs on an NCDHW view of x (channels_last_3d in memory, no
-    copy) and autograd gives the backward, on any device.
+    copy) and autograd gives the backward, on any device. A ``bias`` (Co,)
+    is added to that output as it is, so the sum is in the wider of the two
+    dtypes: a bf16 conv with an fp32 bias gives fp32 in the one pass that
+    widens it. ``conv3d_same_autograd.calls`` counts calls.
     """
+    conv3d_same_autograd.calls += 1
     dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
     kd, kh, kw = w.shape[:3]
     y = F.conv3d(
         x.to(dt).permute(0, 4, 1, 2, 3),
         w.to(dt).permute(4, 3, 0, 1, 2),
         padding=((kd - 1) // 2, (kh - 1) // 2, (kw - 1) // 2),
-    )
-    return y.permute(0, 2, 3, 4, 1)
+    ).permute(0, 2, 3, 4, 1)
+    return y if bias is None else y + bias
+
+
+conv3d_same_autograd.calls = 0
 
 
 def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tensor:

@@ -141,9 +141,21 @@ def run_train_epoch(cfg: Config, state: TrainState, step_fn, sampler: PatchSampl
             if mesh is not None:
                 batch = shard_batch(mesh, batch)
             else:
-                batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+                batch = {k: _h2d(v, device) for k, v in batch.items()}
         pending.append(step_fn(batch))
     return _epoch_log(cfg, state, pending, epoch, t0, mesh)
+
+
+def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``. To a card it goes through pinned
+    memory with a copy that does not wait for the stream, so the host queues
+    the next step while the card still runs the last one (a pageable copy
+    waits for every queued kernel, leaving the card idle while the host
+    copies and launches)."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def run_train_epoch_device(cfg: Config, state: TrainState, step_fn, sample_fn, steps: int,

@@ -12,13 +12,16 @@ epoch in it).
 The spans, at the layer boundaries of the two paths:
 
   rm.sampler.wait     data/sampler: the consumer's wait for its next batch
-  rm.loop.h2d         train/loop.run_train_epoch: the batch's copy to the card
+  rm.loop.h2d         train/loop.run_train_epoch: the batch's pinned copy to the card
   rm.step             train/step: the whole train step
   rm.mode.merge       ops/mode: the gate merge of a merged route (the
                       training route's kernel; the s2d routes' bank and einsum)
   rm.mode.merge_bwd   ops/mode: the training route's gate-merge backward
   rm.mode.conv        ops/mode: the casts and the conv of a MoDE conv, in the
                       forward and in the hand-written backwards
+  rm.unet.conv        models/unet: a plain U-Net's 'same' conv (UNet,
+                      fnet_nn_3d) with its casts and bias, in the forward
+  rm.unet.bn          models/unet: a plain U-Net's BN and ReLU, in the forward
   rm.reparam.prepare  models/reparam: a task's re-parameterization
   rm.predict          infer/predict: one volume
   rm.predict.h2d      infer/predict: the volume's copy to the card

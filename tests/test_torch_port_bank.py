@@ -26,6 +26,7 @@ from repmode_tpu_torch.data.device_sampler import DeviceVolumeBank, make_device_
 from repmode_tpu_torch.data.store import VolumeRecord, VolumeStore
 from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.parallel import Mesh
+from repmode_tpu_torch.train import loop
 from repmode_tpu_torch.train.loop import run_experiment, use_device_bank
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -280,3 +281,31 @@ def test_run_experiment_pipelines(tmp_path, monkeypatch, pipeline, budget, want)
     if want == "bank":  # the same seed and flags give the same run
         res2 = run_experiment(again, stores, device="cpu")
         assert res2["train_log"]["loss/epoch"] == res["train_log"]["loss/epoch"]
+
+
+def test_h2d_on_the_cpu_is_a_plain_copy():
+    """run_train_epoch's copy of a host batch array: on the CPU the same
+    values, no pinned memory (there is no card to pin for)."""
+    a = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    t = loop._h2d(a, torch.device("cpu"))
+    assert t.device.type == "cpu" and not t.is_pinned() and torch.equal(t, torch.from_numpy(a))
+
+
+def test_h2d_to_a_card_pins_then_copies_without_waiting(monkeypatch):
+    """To a card the array goes through pinned memory and a copy with
+    ``non_blocking=True`` (so the host does not wait for the queued steps),
+    recorded here with a stand-in for the host tensor."""
+    calls = []
+
+    class Host:
+        def pin_memory(self):
+            calls.append("pin_memory")
+            return self
+
+        def to(self, device, non_blocking=False):
+            calls.append(("to", device.type, non_blocking))
+            return "on the card"
+
+    monkeypatch.setattr(torch, "from_numpy", lambda a: Host())
+    assert loop._h2d(np.zeros(3, np.float32), torch.device("cuda")) == "on the card"
+    assert calls == ["pin_memory", ("to", "cuda", True)]

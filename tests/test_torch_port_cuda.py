@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (``conv3d_same``: its plan, and each tile of its warpgroup-MMA
-instance through forced plans), K2 and K3 (``conv3d_same_persample``, forward and
+K1 (``conv3d_same``: its plan, each tile of its warpgroup-MMA
+instance through forced plans, and fnet_nn_3d's 27-tap serving convs with
+their bias), K2 and K3 (``conv3d_same_persample``, forward and
 ``transpose_taps``), K4 (``conv3d_dw_persample``: its narrow and mma.sync
 wide instances, and each tile of its warpgroup-MMA instance, whose
 descriptors a one-block test holds first), K5 (``conv3d_dpad``: its plan, each tile of its
@@ -13,7 +14,8 @@ training route (``gate_merge_persample``: forward and backward, at every
 MoDE conv of the net), the training path through K2-K4 and, under
 ``train_impl='expert_sum'``, through ``conv3d_same_autograd``, the
 space-to-depth serving routes through K1 and K5, and the space-to-depth
-training path through K6 and K2-K4. Every test needs a CUDA card (the kernels have no CPU mode) and
+training path through K6 and K2-K4; also the training loop's pinned
+host-to-device copy, which does not wait for queued work. Every test needs a CUDA card (the kernels have no CPU mode) and
 skips without one. On the card, run this file without the JAX package's
 conftest:
 
@@ -224,6 +226,24 @@ def test_every_wide_serving_shape_plans_wgmma(cuda):
         wide = shape[-1] > 1 and co > 1 and shape[2] * shape[3] >= 128
         assert plan["instance"] == ("wgmma" if wide else "mma_sync"), (shape, co, plan)
         assert plan["registers"] > 0 and (plan["local_bytes"] == 0 or not wide), (shape, co, plan)
+
+
+# fnet_nn_3d's 19 serving convs at full width (27 taps), batch 2
+FNET3D_SHAPES = k1_serving_shapes(ModelConfig(name="fnet_nn_3d", mult_chan=32, depth=4,
+                                              kernel_size=3), batch=2)
+
+
+@pytest.mark.parametrize("shape,co", FNET3D_SHAPES, ids=[f"{s[1:]}->{co}" for s, co in FNET3D_SHAPES])
+def test_fnet3d_serving_shapes_match_plain(cuda, shape, co):
+    """K1 at each 'same' conv of fnet_nn_3d's eval forward (``models/fnet``
+    through ``models/unet._conv``): 27 taps, its bias in the epilogue, fp32
+    out, with the plan the wrapper picks, against the fp64 plain version."""
+    x, wk, b = k1_operands(shape, co, (3, 3, 3), cuda, seed=shape[-1] + co)
+    y = conv3d_same(x, wk, b, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = plain_fp64(x, wk, b, False)
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
 
 
 def test_kernel_rejects_fp32_compute(cuda):
@@ -1219,3 +1239,18 @@ def test_s2d_eval_net_runs_the_expert_sum_through_k1(cuda, monkeypatch):
     assert y.shape == ref.shape == (2, 8, 32, 32, 1) and torch.isfinite(y).all()
     assert float((y - ref).norm() / ref.norm()) <= 1e-2
 
+
+def test_train_loop_h2d_does_not_wait_for_queued_work(cuda):
+    """``train/loop._h2d`` returns while the card still runs earlier work
+    (a pageable copy would wait for it), and the batch arrives intact."""
+    from repmode_tpu_torch.train import loop
+
+    a = np.random.default_rng(0).standard_normal((8, 32, 64, 64, 1), dtype=np.float32)
+    loop._h2d(a, cuda)  # warm the pinned pool
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of device time at H100 clocks
+    t = loop._h2d(a, cuda)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "the copy waited for the queued work"
+    assert t.device.type == "cuda" and torch.equal(t.cpu(), torch.from_numpy(a))

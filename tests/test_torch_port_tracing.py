@@ -5,9 +5,12 @@ two native train steps, a ``prepare`` and one tiled volume): once
 with no profiler, where no ``rm.`` range may be entered, and once under
 ``torch.profiler``, where each span occurs as often as the paths say and
 nests where it should. Both runs give bit-equal losses, parameters and
-predictions. Then ``bench_torch.spans.span_split`` on events built by
-hand, its per-unit readings, and ``bench_torch.profile``'s kernel filter,
-which counts no span's annotation on the device's timeline.
+predictions. The same for the plain U-Nets (``UNet``, ``fnet_nn_3d``): a
+train step and a tiled volume, with the ``rm.unet.`` spans of their convs
+and BNs, and the ``conv3d_same_autograd.calls`` counter. Then
+``bench_torch.spans.span_split`` on events built by hand, its per-unit
+readings, and ``bench_torch.profile``'s kernel filter, which counts no
+span's annotation on the device's timeline.
 """
 
 from types import SimpleNamespace
@@ -24,6 +27,7 @@ from repmode_tpu_torch.data.synthetic import synthetic_store
 from repmode_tpu_torch.infer.predict import TiledPredictor
 from repmode_tpu_torch.models.repmode import MoDEConv
 from repmode_tpu_torch.models.reparam import make_inference
+from repmode_tpu_torch.ops import conv3d as conv3d_mod
 from repmode_tpu_torch.train.loop import run_train_epoch
 from repmode_tpu_torch.train.state import create_train_state
 from repmode_tpu_torch.train.step import make_train_step
@@ -134,6 +138,79 @@ def test_span_is_a_shared_null_context_when_off():
     assert [e.name for e in prof.events() if e.name.startswith("rm.")] == ["rm.step"]
 
 
+def _unet_cfg(model: str) -> Config:
+    return Config(model=ModelConfig(name=model, mult_chan=2, depth=2,
+                                    kernel_size=3 if model == "fnet_nn_3d" else 5),
+                  data=DataConfig(adopted_datasets=("dna", "lamin_b1")),
+                  train=TrainConfig(batch_size=2, batch_size_eval=2, patch_size=PATCH,
+                                    compute_dtype="float32"),
+                  eval=EvalConfig(patch_size=PATCH, s2d=False))
+
+
+def _unet_work(cfg: Config) -> dict:
+    """One train step on a fixed batch, then a prepare and a volume."""
+    store = synthetic_store(cfg.data.adopted_datasets, 1, vol_shape=VOLUME)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"signal": torch.randn((2, *PATCH, 1), generator=g),
+             "target": torch.randn((2, *PATCH, 1), generator=g), "task": torch.tensor([0, 1])}
+    calls = conv3d_mod.conv3d_same_autograd.calls
+    loss = make_train_step(cfg, state)(batch)["loss"]
+    step_calls = conv3d_mod.conv3d_same_autograd.calls - calls
+    prepare, _ = make_inference(cfg)
+    predictor = TiledPredictor(cfg, device="cpu")
+    calls = conv3d_mod.conv3d_same_autograd.calls
+    pred = predictor(prepare(state.net.state_dict(), 1), store[0].signal)
+    return {"loss": loss, "pred": pred, "step_calls": step_calls,
+            "volume_calls": conv3d_mod.conv3d_same_autograd.calls - calls,
+            "params": [p.detach().clone() for p in state.net.parameters()],
+            "batches": len(predictor.grid(VOLUME)[0])}
+
+
+@pytest.fixture(scope="module", params=["UNet", "fnet_nn_3d"])
+def unet_runs(request):
+    cfg = _unet_cfg(request.param)
+    entered = []
+    real = torch.autograd.profiler.record_function.__init__
+
+    def init(self, name, args=None):
+        entered.append(name)
+        real(self, name, args)
+
+    with mock.patch.object(torch.autograd.profiler.record_function, "__init__", init):
+        off = _unet_work(cfg)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on = _unet_work(cfg)
+    ranges = [(e.name(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()]
+    return {"off": off, "entered": entered, "on": on, "ranges": ranges}
+
+
+def test_unet_spans_and_autograd_conv_calls(unet_runs):
+    """Depth 2: 4 * 2 + 3 = 11 'same' convs a forward (8 + 2 in the
+    subnets, conv_out) and 6 * 2 + 2 = 14 BN + ReLU (10 after a subnet's
+    convs, 2 after the downsamples, 2 after the upsamples). A train step runs
+    the forward once (its backward opens no span) and calls the autograd
+    conv 11 times; a served volume runs the eval forward once a batch, every
+    conv through ``conv3d_same`` (K1 on the card), the autograd conv never."""
+    off, on = unet_runs["off"], unet_runs["on"]
+    assert not [n for n in unet_runs["entered"] if n.startswith(timing.PREFIX)]
+    assert off["loss"] == on["loss"] and torch.equal(off["pred"], on["pred"])
+    assert all(torch.equal(a, b) for a, b in zip(off["params"], on["params"]))
+    for run in (off, on):
+        assert (run["step_calls"], run["volume_calls"]) == (11, 0)
+    nb = on["batches"]
+    assert nb == 4
+    mine = [r for r in unet_runs["ranges"] if r[0].startswith("rm.")]
+    count = {n: sum(r[0] == n for r in mine) for n in {r[0] for r in mine}}
+    assert count == {"rm.step": 1, "rm.unet.conv": 11 * (1 + nb), "rm.unet.bn": 14 * (1 + nb),
+                     "rm.reparam.prepare": 1, "rm.predict": 1, "rm.predict.h2d": 1,
+                     "rm.predict.stitch": 2 * nb + 1}
+    for r in mine:
+        if r[0].startswith("rm.unet."):
+            assert _around(r, mine) in (["rm.step"], ["rm.predict"]), r
+
+
 # (name, start, end) in microseconds; window [0, 110)
 HOST = [("rm.step", 2, 100), ("rm.mode.merge", 10, 20), ("aten::copy_", 15, 18),
         ("rm.mode.conv", 20, 40), ("rm.mode.conv", 60, 80), ("rm.sampler.wait", 100, 110),
@@ -178,6 +255,33 @@ def test_readings_a_unit():
     serve = bench_spans.readings("serve", 2, spans, 0.0, ())
     assert serve == pytest.approx({"prepare_ms.serve": 20, "h2d_ms.serve": 30,
                                    "stitch_ms.serve": 4})
+
+
+def test_unet_readings_a_unit():
+    """A plain U-Net's cell adds its two readings; its checks hold the conv
+    buckets inside ``rm.unet.conv`` to at most their time in the window (the
+    backward's convs run under no span) and read the glue of its own
+    ``glue_ms.<config>.serve``."""
+    spans = {"rm.unet.conv": {"device_s": 0.5, "idle_s": 0.0,
+                              "device_by_bucket": {"cudnn_conv": 0.3, "copies": 0.2}},
+             "rm.unet.bn": {"device_s": 0.1, "idle_s": 0.0}}
+    train = bench_spans.readings("train", 2, spans, 0.0, ("cudnn_conv",))
+    assert train["unet_conv_glue_ms.train"] == pytest.approx(100)
+    assert train["unet_bn_ms.train"] == pytest.approx(50)
+    serve = bench_spans.readings("serve", 2, spans, 0.0, ("cudnn_conv",))
+    assert set(serve) == {"prepare_ms.serve", "h2d_ms.serve", "stitch_ms.serve",
+                          "unet_conv_glue_ms.serve", "unet_bn_ms.serve"}
+    trace = {"spans": {**spans, "rm.step": {"n": 2, "idle_s": 0.0},
+                       "rm.loop.h2d": {"n": 2, "idle_s": 0.0}},
+             "rm_kernels": 0, "window_s": 1.0, "busy_s": 1.0, "bucket_s": {"cudnn_conv": 0.9}}
+    got = bench_spans.checks("train", 2, trace, {}, ("cudnn_conv",))
+    assert got["unet_conv_within cudnn_conv"] == [0.3, 0.9, True]
+    assert all(c[2] for c in got.values())
+    trace["spans"] = {**spans, "rm.predict": {"n": 2, "idle_s": 0.0},
+                      "rm.predict.h2d": {"n": 2, "idle_s": 0.0},
+                      "rm.predict.stitch": {"device_s": 0.004, "idle_s": 0.0}}
+    got = bench_spans.checks("serve", 2, trace, {"glue_ms.serve": 3.0}, ("cudnn_conv",))
+    assert got["stitch_within_glue"] == [2.0, 3.0, True]
 
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
