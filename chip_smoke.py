@@ -69,10 +69,12 @@ kernels):
   fnet3d        pytorch_fnet's fnet_nn_3d (cli --nn_module fnet_nn_3d, 3^3
                 kernels with bias) at full width: K1 at each of the 19 'same'
                 convs its eval forward calls at batch 8 (recorded from the
-                net: 27 taps, bias epilogue, fp32 in and out), held against
-                its plain version and timed as in the kernel phase; then the
-                unet phase's checks for it (train step, cli.train then
-                cli.evaluate, the tiled predictor with K1 19 launches a batch);
+                net: 27 taps; 18 with the BN after them in the epilogue,
+                scale, bias and ReLU, bf16 out; conv_out bias only, fp32
+                out), held against its plain version and timed as in the
+                kernel phase; then the unet phase's checks for it (train
+                step, cli.train then cli.evaluate, the tiled predictor with
+                K1 19 launches a batch, 18 of them with BN);
   bank          the device bank under on_device_pipeline auto: run_experiment
                 with the native net from a ragged train store of 24 volumes
                 (mostly 32x624x924, 3.54 GB padded, under the 4 GiB budget):
@@ -408,7 +410,8 @@ def kernel_phase(convs, phase="kernel"):
     """Each distinct conv shape once: check against the plain version, time.
     A conv's taps are (5,5,5) unless it names others; its epilogue is
     bias+ReLU or none (``bias_relu``) unless it names one ("bias_relu",
-    "bias" or "none")."""
+    "bias", "none" or "scale_bias_relu": an eval BN's per-channel scale
+    before the bias)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     distinct = {}
@@ -423,7 +426,7 @@ def kernel_phase(convs, phase="kernel"):
                   ops_ms=0.0, bytes_ms=0.0)
     for cv in distinct.values():
         n, d, h, w, ci = cv["x"]
-        co, relu = cv["co"], cv["epilogue"] == "bias_relu"
+        co, relu = cv["co"], cv["epilogue"].endswith("bias_relu")
         taps = cv.get("taps", (5, 5, 5))
         ntaps = taps[0] * taps[1] * taps[2]
         odt = getattr(torch, cv["out_dtype"])
@@ -431,12 +434,15 @@ def kernel_phase(convs, phase="kernel"):
         wk = torch.randn((*taps, ci, co), generator=gen, device=dev) / (ntaps * ci) ** 0.5
         b = (None if cv["epilogue"] == "none"
              else torch.randn((co,), generator=gen, device=dev) * 0.1)
+        sc = (torch.rand((co,), generator=gen, device=dev) + 0.5
+              if cv["epilogue"].startswith("scale_") else None)
 
         def kernel():
-            return conv3d_same(x, wk, b, relu=relu, compute_dtype=torch.bfloat16, out_dtype=odt)
+            return conv3d_same(x, wk, b, scale=sc, relu=relu, compute_dtype=torch.bfloat16,
+                               out_dtype=odt)
 
         def plain():
-            return conv3d_same_plain(x, wk, b, relu=relu, compute_dtype=torch.bfloat16)
+            return conv3d_same_plain(x, wk, b, scale=sc, relu=relu, compute_dtype=torch.bfloat16)
 
         xl = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)  # channels_last_3d view
         wl = wk.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
@@ -445,6 +451,8 @@ def kernel_phase(convs, phase="kernel"):
 
         def library():
             y = F.conv3d(xl, wl, bl, padding=tuple(k // 2 for k in taps))
+            if sc is not None:
+                y = y * sc.to(y.dtype).view(-1, 1, 1, 1)
             return torch.relu_(y) if relu else y
 
         # the reference is the plain version evaluated in fp64 on the same
@@ -453,7 +461,8 @@ def kernel_phase(convs, phase="kernel"):
         y = kernel()
         ref = conv3d_same_plain(
             x.to(torch.bfloat16).double(), wk.to(torch.bfloat16).double(),
-            None if b is None else b.double(), relu=relu)
+            None if b is None else b.double(), scale=None if sc is None else sc.double(),
+            relu=relu)
         torch.cuda.synchronize()
         err = (y.double() - ref).abs()
         top = ref.abs().max()
@@ -476,7 +485,7 @@ def kernel_phase(convs, phase="kernel"):
         plan = conv3d_same_plan(cv["x"], co, taps, odt, device=dev)
         flops = 2.0 * n * d * h * w * ntaps * ci * co
         nbytes = (x.numel() * x.element_size() + wk.numel() * 2 + (0 if b is None else co * 4)
-                  + n * d * h * w * co * odt.itemsize)
+                  + (0 if sc is None else co * 4) + n * d * h * w * co * odt.itemsize)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
         emit({"phase": phase, "convs": cv["names"], "launches_per_batch": cv["count"],
@@ -501,7 +510,7 @@ def kernel_phase(convs, phase="kernel"):
         totals["ops_ms"] += k * t_ops
         totals["bytes_ms"] += k * t_bytes
         totals["max_abs_err"] = max(totals["max_abs_err"], max_abs)
-        del x, wk, b, xl, wl, bl
+        del x, wk, b, sc, xl, wl, bl
         torch.cuda.empty_cache()
     emit({"phase": phase, "per_batch_of": 8, "convs_per_batch": len(convs), **totals})
     return totals
@@ -1303,15 +1312,17 @@ def s2d_k1_names(cfg, levels, route):
 def recording_k1(calls):
     """A stand-in for reparam's conv3d_same: appends each call's input
     shape, taps, Co, epilogue and dtypes to ``calls``, then launches K1."""
-    def conv(x, w, bias=None, *, relu=False, compute_dtype=None, out_dtype=None):
+    def conv(x, w, bias=None, *, scale=None, relu=False, compute_dtype=None, out_dtype=None):
         check(compute_dtype == torch.bfloat16 and (bias is not None or not relu),
               "an s2d route calls K1 outside bf16 compute or with ReLU but no bias")
+        epilogue = "bias_relu" if relu else ("none" if bias is None else "bias")
         calls.append(dict(
             x=tuple(x.shape), co=w.shape[-1], taps=tuple(w.shape[:3]),
-            epilogue="bias_relu" if relu else ("none" if bias is None else "bias"),
+            epilogue=epilogue if scale is None else "scale_" + epilogue,
             in_dtype=str(x.dtype).removeprefix("torch."),
             out_dtype=str(out_dtype or torch.float32).removeprefix("torch.")))
-        return conv3d_same(x, w, bias, relu=relu, compute_dtype=compute_dtype, out_dtype=out_dtype)
+        return conv3d_same(x, w, bias, scale=scale, relu=relu, compute_dtype=compute_dtype,
+                           out_dtype=out_dtype)
     return conv
 
 
@@ -2223,15 +2234,20 @@ def unet_phase(num_convs, card, name="UNet", tag="unet"):
     pred(served, vol)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
+    conv3d_same.bn_epilogues = 0
     t0 = time.perf_counter()
     y = pred(served, vol)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = conv3d_same.launches
+    launches, bn_epilogues = conv3d_same.launches, conv3d_same.bn_epilogues
     serve_prof, _ = device_breakdown(lambda: pred(served, vol), top=8)
 
-    def autograd_conv(x, w, bias=None, compute_dtype=None):
-        return conv3d_mod.conv3d_same_autograd(x, w, bias, compute_dtype=compute_dtype).float()
+    def autograd_conv(x, w, bias=None, *, scale=None, relu=False, compute_dtype=None,
+                      out_dtype=None):
+        y = conv3d_mod.conv3d_same_autograd(x, w, compute_dtype=compute_dtype).float()
+        y = y if scale is None else y * scale
+        y = y if bias is None else y + bias
+        return (torch.relu(y) if relu else y).to(out_dtype or torch.float32)
 
     with mock.patch.object(unet_mod, "conv3d_same", autograd_conv):
         y_ref = TiledPredictor(cfg)(served, vol)
@@ -2241,14 +2257,20 @@ def unet_phase(num_convs, card, name="UNet", tag="unet"):
     emit({"phase": f"{tag}_predictor", "card": card, "volume": list(vol.shape),
           "patches": pred.num_patches(vol.shape), "batches": batches, "seconds": secs,
           "mvox_per_s": vol.numel() / secs / 1e6, "k1_launches": launches,
-          "k1_launches_per_batch": launches / batches, "rel_l2_vs_conv3d_same_autograd": rel,
+          "k1_launches_per_batch": launches / batches,
+          "k1_bn_epilogues_per_batch": bn_epilogues / batches,
+          "rel_l2_vs_conv3d_same_autograd": rel,
           "max_abs_ref": float(y_ref.abs().max()), "out_std": float(y.std()),
-          "tolerance": "rel L2 <= 1e-2 (K1's fp32 conv outputs against cuDNN's bf16 ones)",
+          "tolerance": "rel L2 <= 1e-2 (K1's fp32 sums, BN in its epilogue, against cuDNN's "
+                       "bf16 conv outputs)",
           "profile": serve_prof, "phase_seconds": time.perf_counter() - t_phase})
     check(bool(torch.isfinite(y).all()) and y.shape == vol.shape and float(y.std()) > 0,
           f"{tag}: bad prediction")
     check(launches == batches * num_convs, f"{tag}: K1 launched {launches} times in {batches} "
                                            f"batches, expected {num_convs} a batch")
+    check(bn_epilogues == batches * (num_convs - 1),
+          f"{tag}: {bn_epilogues} K1 launches with BN in the epilogue in {batches} batches, "
+          f"expected {num_convs - 1} a batch (all but conv_out)")
     check(rel <= 1e-2, f"{tag}: K1 vs conv3d_same_autograd prediction rel L2 {rel}")
     del net, served, pred
     torch.cuda.empty_cache()
@@ -2259,7 +2281,7 @@ FNET3D = "fnet_nn_3d"
 
 def fnet3d_convs(batch=8):
     """fnet_nn_3d's 'same' convs as its eval forward calls K1 (name, input
-    shape, Co, taps, epilogue, dtypes), recorded from one forward of the
+    shape, Co, taps, epilogue, dtypes), recorded from one no-grad forward of the
     full-width net (bf16 compute) on a batch of ``batch`` PATCH patches,
     named in launch order."""
     cfg = Config(model=ModelConfig(name=FNET3D, kernel_size=kernel_size_of(FNET3D)),
@@ -2277,17 +2299,22 @@ def fnet3d_convs(batch=8):
 def fnet3d_phase(card):
     """pytorch_fnet's fnet_nn_3d (--nn_module fnet_nn_3d) at full width: K1
     at each of the 19 'same' convs its eval forward calls at batch 8 (27
-    taps, the bias in the epilogue, fp32 in and out), held against the plain
-    version as the kernel phase holds RepMode's; then unet_phase for it
-    (train step, cli.train then cli.evaluate, the tiled predictor with K1 19
-    launches a batch)."""
+    taps; the first 18 with BN's scale, the bias and ReLU in the epilogue,
+    bf16 out, in bf16 but the first conv's fp32 input; conv_out the bias
+    alone, bf16 in and fp32 out), held against the plain version as the
+    kernel phase holds RepMode's; then unet_phase for it (train step,
+    cli.train then cli.evaluate, the tiled predictor with K1 19 launches a
+    batch)."""
     convs = fnet3d_convs()
     emit({"phase": "fnet3d_convs", "convs": len(convs),
           "shapes": [[list(c["x"]), c["co"]] for c in convs]})
     check(len(convs) == 19, f"fnet3d: {len(convs)} K1 calls a forward, expected 19")
-    check(all(c["taps"] == (3, 3, 3) and c["epilogue"] == "bias" and c["in_dtype"] == "float32"
-              and c["out_dtype"] == "float32" for c in convs),
-          "fnet3d: a K1 call is not 27 taps with a bias epilogue, fp32 in and out")
+    want = [("scale_bias_relu", "bfloat16", "bfloat16")] * 18 + [("bias", "bfloat16", "float32")]
+    want[0] = ("scale_bias_relu", "float32", "bfloat16")
+    check(all(c["taps"] == (3, 3, 3) for c in convs)
+          and [(c["epilogue"], c["in_dtype"], c["out_dtype"]) for c in convs] == want,
+          "fnet3d: K1's calls are not 27 taps with BN in the epilogue and bf16 out, then "
+          "conv_out with the bias alone and fp32 out")
     kernel_phase(convs, phase="fnet3d_kernel")
     torch.cuda.empty_cache()
     unet_phase(len(convs), card, name=FNET3D, tag="fnet3d")

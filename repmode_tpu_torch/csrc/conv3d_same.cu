@@ -1,14 +1,16 @@
-// 'same' 3-D convolution with a fused bias(+ReLU) epilogue, for Hopper (sm_90a).
+// 'same' 3-D convolution with a fused scale, bias (+ReLU) epilogue, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repmode_tpu/ops/pallas/conv3d.py:pallas_conv3d_same
 // (bodies _conv_kernel and _conv_bias_relu_kernel). It computes
 //
-//     y[n,p,o] = act( sum_t sum_i x[n, p + t - c, i] * w[t, i, o] + b[o] )
+//     y[n,p,o] = act( (sum_t sum_i x[n, p + t - c, i] * w[t, i, o]) * s[o] + b[o] )
 //
 // with zero 'same' padding, any odd (kD, kH, kW), NDHWC activations and DHWIO
 // weights (zero-padded by the caller to whole Ci chunks and Co tiles). x and
-// w are bf16, products are summed in fp32, the epilogue (none / bias /
-// bias+ReLU) runs in fp32 and the output is fp32 or bf16.
+// w are bf16, products are summed in fp32, the epilogue (an optional
+// per-channel scale s, an optional bias b, an optional ReLU) runs in fp32 and
+// the output is fp32 or bf16. With s and b an eval-mode BatchNorm after the
+// conv is the epilogue, without rounding the weights by its scale.
 //
 // What bounds it: at the serving shapes a conv does ~2*125*Ci*Co operations
 // per output voxel and moves tens of MB, far above the card's ~295
@@ -81,6 +83,7 @@ struct ConvParams {
   const __nv_bfloat16* x;  // (N, D, H, W, Ci)
   const __nv_bfloat16* wt; // narrow: (T, ci_pad, co_pad); wide: (T, co_pad, ci_pad)
   const float* bias;       // (co_pad) or nullptr
+  const float* scale;      // (co_pad) or nullptr: multiplies the sum before the bias
   void* y;                 // (N, D, H, W, Co), fp32 or bf16
   int n, d, h, w, ci, co;
   int kd, kh, kw;
@@ -99,7 +102,11 @@ struct ConvParams {
 
 // ---------------------------------------------------------------- narrow instance
 
-template <int KC, int BN, bool OUT_BF16>
+// SCALE: the epilogue multiplies by p.scale. A template parameter, so the
+// instances without a scale compile to the code they were before it: with a
+// runtime test, the latency-bound 1-channel input conv and conv_out (Co = 1)
+// read 1-2 % slower.
+template <int KC, int BN, bool OUT_BF16, bool SCALE>
 __global__ void __launch_bounds__(THREADS)
 conv3d_same_kernel(const ConvParams p) {
   constexpr int A_STRIDE = KC + 8;  // bf16 per slab position (pad: no bank conflicts)
@@ -225,7 +232,7 @@ conv3d_same_kernel(const ConvParams p) {
     __syncthreads();
   }
 
-  // ---- epilogue: bias (+ReLU) in fp32, then store ----
+  // ---- epilogue: scale, bias (+ReLU) in fp32, then store ----
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -242,6 +249,7 @@ conv3d_same_kernel(const ConvParams p) {
           const int co = co0 + warp_n * WN + j * 8 + (lane & 3) * 2 + e;
           if (co >= p.co) continue;
           float v = acc[mt][j][half * 2 + e];
+          if (SCALE) v *= p.scale[co];
           if (p.bias != nullptr) v += p.bias[co];
           if (p.relu) v = fmaxf(v, 0.0f);
           if (OUT_BF16) {
@@ -392,7 +400,9 @@ conv3d_same_kernel_wgmma(const ConvParams p, const __grid_constant__ CUtensorMap
 #pragma unroll
   for (int i = 0; i < MT; ++i) fence_accumulators(acc[i]);
 
-  // ---- epilogue: bias (+ReLU) in fp32, then store ----
+  // ---- epilogue: scale, bias (+ReLU) in fp32, then store ----
+  // (the scale is a runtime test here: the wide instances time the same with
+  // it, and a template parameter would double their build)
   // accumulator 4j + 2h + e of lane l in warp wl: row 16 wl + l/4 + 8h of
   // the m64 tile, column 8j + 2(l%4) + e (the mma.m16n8k16 C fragment, once
   // per 8 columns)
@@ -420,6 +430,10 @@ conv3d_same_kernel_wgmma(const ConvParams p, const __grid_constant__ CUtensorMap
         const int co = co0 + j * 8 + (lane & 3) * 2;
         if (co >= p.co) continue;
         float v0 = acc[i][j * 4 + half * 2], v1 = acc[i][j * 4 + half * 2 + 1];
+        if (p.scale != nullptr) {
+          v0 *= p.scale[co];
+          v1 *= p.scale[co + 1];
+        }
         if (p.bias != nullptr) {
           v0 += p.bias[co];
           v1 += p.bias[co + 1];
@@ -463,14 +477,22 @@ size_t wide_smem(const ConvParams& p, int kc, int bn, int stages) {
 using Kernel = void (*)(ConvParams);
 using WideKernel = void (*)(ConvParams, CUtensorMap, CUtensorMap);
 
-template <int KC, bool OUT_BF16>
+template <int KC, bool OUT_BF16, bool SCALE>
 Kernel narrow_kernel(int bn) {
   switch (bn) {
-    case 16: return &conv3d_same_kernel<KC, 16, OUT_BF16>;
-    case 32: return &conv3d_same_kernel<KC, 32, OUT_BF16>;
-    case 64: return &conv3d_same_kernel<KC, 64, OUT_BF16>;
+    case 16: return &conv3d_same_kernel<KC, 16, OUT_BF16, SCALE>;
+    case 32: return &conv3d_same_kernel<KC, 32, OUT_BF16, SCALE>;
+    case 64: return &conv3d_same_kernel<KC, 64, OUT_BF16, SCALE>;
     default: return nullptr;
   }
+}
+
+template <int KC>
+Kernel narrow_instance(int bn, int out_bf16, bool scale) {
+  if (out_bf16) {
+    return scale ? narrow_kernel<KC, true, true>(bn) : narrow_kernel<KC, true, false>(bn);
+  }
+  return scale ? narrow_kernel<KC, false, true>(bn) : narrow_kernel<KC, false, false>(bn);
 }
 
 // Instances: BN 32 at 1, 2 or 4 m64 tiles a warpgroup, BN 64 at 1 or 2, BN
@@ -510,10 +532,11 @@ struct Launch {
 };
 
 // instance: 0 narrow (mma.sync), 1 wide (wgmma, BM = 64 * warpgroups * m64
-// tiles a warpgroup, the latter given as mt: 1, 2 or 4).
+// tiles a warpgroup, the latter given as mt: 1, 2 or 4); scale: the narrow
+// instance with a scale in its epilogue.
 Launch plan_launch(ConvParams& p, int n, int d, int h, int wl, int ci, int co, int kd, int kh,
                    int kw, int ci_pad, int co_pad, int instance, int bm, int mt, int bn, int kc,
-                   int stages, int out_bf16) {
+                   int stages, int out_bf16, bool scale = false) {
   Launch l{nullptr, nullptr, 0, 0, dim3(1)};
   if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0 || n <= 0 || d <= 0 || h <= 0 || wl <= 0 ||
       ci <= 0 || ci % 8 != 0 || co <= 0 || ci_pad < ci || co_pad < co || kc <= 0 || bn <= 0 ||
@@ -569,11 +592,8 @@ Launch plan_launch(ConvParams& p, int n, int d, int h, int wl, int ci, int co, i
       p.tiles_per_plane = (h + p.rows_per_tile - 1) / p.rows_per_tile;
     }
     p.slab_cap = p.rows_per_tile * (p.tw + kw - 1);
-    if (kc == 16) {
-      l.kern = out_bf16 ? narrow_kernel<16, true>(bn) : narrow_kernel<16, false>(bn);
-    } else {
-      l.kern = out_bf16 ? narrow_kernel<32, true>(bn) : narrow_kernel<32, false>(bn);
-    }
+    l.kern = kc == 16 ? narrow_instance<16>(bn, out_bf16, scale)
+                      : narrow_instance<32>(bn, out_bf16, scale);
     l.threads = THREADS;
     l.smem = narrow_smem(p, kc, bn);
   } else {
@@ -611,8 +631,9 @@ bool encode_maps(const ConvParams& p, const void* x, const void* w, int kc, int 
 extern "C" {
 
 // What a plan launches, into out[0..4]: dynamic shared bytes, grid x, grid
-// y, registers a thread, local (spill) bytes a thread. The plan's arguments
-// are those of conv3d_same_bf16. Returns cudaErrorInvalidValue for a plan
+// y, registers a thread, local (spill) bytes a thread (of the instance
+// without a scale). The plan's arguments are those of conv3d_same_bf16.
+// Returns cudaErrorInvalidValue for a plan
 // with no instance, else the cudaError_t of reading the kernel's attributes.
 int conv3d_same_plan(int n, int d, int h, int wl, int ci, int co, int kd, int kh, int kw,
                      int ci_pad, int co_pad, int instance, int bm, int mt, int bn, int kc,
@@ -634,18 +655,20 @@ int conv3d_same_plan(int n, int d, int h, int wl, int ci, int co, int kd, int kh
 // Launches the planned instance on `stream` and returns the cudaError_t of
 // the launch (0 on success). instance: 0 narrow (mma.sync), 1 wide (wgmma).
 // Weights: (T, ci_pad, co_pad) for the narrow instance, K-major (T, co_pad,
-// ci_pad) for the wide one. Does not synchronize and allocates nothing.
-int conv3d_same_bf16(const void* x, const void* w, const void* bias, void* y, int n, int d,
-                     int h, int wl, int ci, int co, int kd, int kh, int kw, int ci_pad,
-                     int co_pad, int instance, int bm, int mt, int bn, int kc, int stages,
-                     int relu, int out_bf16, void* stream) {
+// ci_pad) for the wide one; bias and scale: fp32 (co_pad) or null. Does not
+// synchronize and allocates nothing.
+int conv3d_same_bf16(const void* x, const void* w, const void* bias, const void* scale, void* y,
+                     int n, int d, int h, int wl, int ci, int co, int kd, int kh, int kw,
+                     int ci_pad, int co_pad, int instance, int bm, int mt, int bn, int kc,
+                     int stages, int relu, int out_bf16, void* stream) {
   ConvParams p;
   const Launch l = plan_launch(p, n, d, h, wl, ci, co, kd, kh, kw, ci_pad, co_pad, instance,
-                               bm, mt, bn, kc, stages, out_bf16);
+                               bm, mt, bn, kc, stages, out_bf16, scale != nullptr);
   if (!l.ok()) return (int)cudaErrorInvalidValue;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.wt = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
+  p.scale = static_cast<const float*>(scale);
   p.y = y;
   p.relu = relu;
   cudaError_t err =

@@ -20,10 +20,12 @@ drawn as torch's default ``Conv3d`` / ``ConvTranspose3d`` init draws it,
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)), from ``generator``.
 
 Activations are NDHWC, as everywhere in the port, and the convs take the
-routes of ``models/unet.py`` (``_conv``, ``_bn_relu``): cuDNN through
-``conv3d_same_autograd`` wherever autograd may record, K1 with the bias in
-its epilogue in eval mode under ``torch.no_grad()``; the resamples are
-``downsample2x_conv`` and ``upsample2x_convt`` with the bias added after.
+routes of ``models/unet.py`` (``_conv_bn_relu``, ``_resample_bn_relu``,
+``_conv``): cuDNN through ``conv3d_same_autograd`` wherever autograd may
+record; in eval mode under ``torch.no_grad()`` K1, with the bias, the BN
+after it and the ReLU in its epilogue; the resamples are
+``downsample2x_conv`` and ``upsample2x_convt`` with the bias added after
+(served, folded into BN's shift).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch import nn
 from repmode_tpu_torch.config import ModelConfig
 from repmode_tpu_torch.device import DeviceLike, resolve_device
 from repmode_tpu_torch.models.repmode import _DTYPES, torch_uniform_init
-from repmode_tpu_torch.models.unet import _bn_relu, _conv
+from repmode_tpu_torch.models.unet import _conv, _conv_bn_relu, _resample_bn_relu
 from repmode_tpu_torch.ops.conv3d import downsample2x_conv, upsample2x_convt
 
 KERNEL_SIZE = 3
@@ -75,8 +77,8 @@ class SubNet2Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = _bn_relu(_conv(x, conv.weight.permute(2, 3, 4, 1, 0), self.cdt, self.training,
-                               conv.bias), bn)
+            x = _conv_bn_relu(x, conv.weight.permute(2, 3, 4, 1, 0), self.cdt, self.training, bn,
+                              conv.bias)
         return x
 
 
@@ -104,9 +106,9 @@ class _NetRecurse(nn.Module):
         cdt = self.cdt
         down = downsample2x_conv(more, self.conv_down.weight.permute(2, 3, 4, 1, 0),
                                  compute_dtype=cdt)
-        h = self.sub_u(_bn_relu(down + self.conv_down.bias, self.bn0))
+        h = self.sub_u(_resample_bn_relu(down, self.conv_down.bias, self.bn0, cdt, self.training))
         up = upsample2x_convt(h, self.convt.weight.permute(2, 3, 4, 0, 1), compute_dtype=cdt)
-        up = _bn_relu(up + self.convt.bias, self.bn1)
+        up = _resample_bn_relu(up, self.convt.bias, self.bn1, cdt, self.training)
         return self.sub_2conv_less(torch.cat([more, up.to(more.dtype)], dim=-1))
 
 

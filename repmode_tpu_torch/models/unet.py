@@ -17,18 +17,28 @@ The 'same' convs take one of two routes, both the JAX package's XLA
   * wherever autograd may record (training mode, or grad enabled):
     ``conv3d_same_autograd`` (``F.conv3d``, cuDNN on the card). In bf16 its
     output is bf16, which is widened to fp32 before BN: one bf16 rounding
-    that JAX's fp32-output conv does not make;
-  * in eval mode under ``torch.no_grad()``: ``conv3d_same`` with no bias and
-    no ReLU, which on the card is one launch of kernel K1 with fp32 output,
-    JAX's conv exactly. BN (running statistics) and the ReLU stay torch ops.
+    that JAX's fp32-output conv does not make. Activations between convs
+    are fp32, as in JAX: every conv, down- and upsample rounds its input to
+    the compute dtype itself;
+  * in eval mode under ``torch.no_grad()`` (served): the conv, its bias, the
+    BN that follows (running statistics) and the ReLU are one
+    ``conv3d_same``, on the card one launch of kernel K1:
+    relu(sum * scale + shift) in fp32 over the fp32 sums, with scale =
+    gamma * rsqrt(var + eps) and shift = (bias - mean) * scale + beta
+    computed from the BN's buffers at every call (``_bn_affine``), so a
+    ``load_state_dict`` is never served stale. The weights are not rounded
+    by the scale. The output is the compute dtype (bf16), the rounding the
+    next conv, resample or the skip's conv makes anyway; so every value is
+    JAX's up to fp32 reassociation. A resample's BN + ReLU is the same
+    affine, then ReLU, written in the compute dtype; the skip is
+    concatenated in it. ``conv_out`` keeps its fp32 output.
 
-Activations between convs are fp32, as in JAX: every conv, down- and
-upsample rounds its input to the compute dtype itself.
-
-``_conv`` and ``_bn_relu`` are the 'same' conv and the BN + ReLU of every
-plain U-Net of the registry (this one and ``models/fnet.py``), each inside a
-span of the port's tracing (``utils/timing``): ``rm.unet.conv`` (the conv
-with its casts and bias) and ``rm.unet.bn``.
+``_conv``, ``_bn_relu``, ``_conv_bn_relu`` and ``_resample_bn_relu`` are
+the convs and BN + ReLU of every plain U-Net of the registry (this one and
+``models/fnet.py``), each inside spans of the port's tracing
+(``utils/timing``): ``rm.unet.conv`` (the conv with its casts, bias and,
+served, its fused epilogue) and ``rm.unet.bn`` (BN + ReLU; served after a
+'same' conv, the scale and shift alone).
 """
 
 from __future__ import annotations
@@ -50,13 +60,18 @@ from repmode_tpu_torch.ops.conv3d import (
 from repmode_tpu_torch.utils.timing import span
 
 
+def _served(training: bool) -> bool:
+    """Eval mode under ``torch.no_grad()``: BN + ReLU fused after the conv."""
+    return not training and not torch.is_grad_enabled()
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, compute_dtype: Optional[torch.dtype],
           training: bool, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """'same' conv of x (N,D,H,W,Ci) with w (k,k,k,Ci,Co) and an optional
     bias (Co,) -> fp32 (fp64 stays fp64); in eval mode the bias is K1's
     epilogue."""
     with span("unet.conv"):
-        if not training and not torch.is_grad_enabled():
+        if _served(training):
             return conv3d_same(x, w, bias, compute_dtype=compute_dtype)
         y = conv3d_same_autograd(x, w, bias, compute_dtype=compute_dtype)
         return y.to(torch.promote_types(y.dtype, torch.float32))
@@ -67,6 +82,41 @@ def _bn_relu(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     ones in eval mode), then ReLU."""
     with span("unet.bn"):
         return torch.relu(_bn(y, bn))
+
+
+def _bn_affine(bn: nn.BatchNorm3d, bias: Optional[torch.Tensor]) -> tuple:
+    """(scale, shift) per channel with bn(y + bias) = y * scale + shift in
+    eval mode, from the running statistics, in fp32 (fp64 stays fp64)."""
+    dt = torch.promote_types(bn.running_var.dtype, torch.float32)
+    scale = bn.weight.to(dt) * torch.rsqrt(bn.running_var.to(dt) + bn.eps)
+    centred = (0.0 if bias is None else bias.to(dt)) - bn.running_mean.to(dt)
+    return scale, torch.addcmul(bn.bias.to(dt), centred, scale)
+
+
+def _conv_bn_relu(x: torch.Tensor, w: torch.Tensor, compute_dtype: Optional[torch.dtype],
+                  training: bool, bn: nn.BatchNorm3d,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'same' conv (``_conv``), BN and ReLU; served, one ``conv3d_same`` with
+    BN as its epilogue's scale and shift, output in the compute dtype."""
+    if not _served(training):
+        return _bn_relu(_conv(x, w, compute_dtype, training, bias), bn)
+    with span("unet.bn"):
+        scale, shift = _bn_affine(bn, bias)
+    with span("unet.conv"):
+        return conv3d_same(x, w, shift, scale=scale, relu=True, compute_dtype=compute_dtype,
+                           out_dtype=compute_dtype)
+
+
+def _resample_bn_relu(y: torch.Tensor, bias: Optional[torch.Tensor], bn: nn.BatchNorm3d,
+                      compute_dtype: Optional[torch.dtype], training: bool) -> torch.Tensor:
+    """BN + ReLU of a resample's output y (fp32) and its bias; served, the
+    affine into the compute dtype, then an in-place ReLU."""
+    if not _served(training):
+        return _bn_relu(y if bias is None else y + bias, bn)
+    with span("unet.bn"):
+        scale, shift = _bn_affine(bn, bias)
+        out = y if compute_dtype is None else torch.empty_like(y, dtype=compute_dtype)
+        return torch.addcmul(shift, y, scale, out=out).relu_()
 
 
 class ConvBNReLU(nn.Module):
@@ -84,8 +134,8 @@ class ConvBNReLU(nn.Module):
                                  momentum=cfg.bn_momentum if cfg else 0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _bn_relu(_conv(x, self.w.permute(2, 3, 4, 1, 0), self.compute_dtype,
-                              self.training), self.bn)
+        return _conv_bn_relu(x, self.w.permute(2, 3, 4, 1, 0), self.compute_dtype,
+                             self.training, self.bn)
 
 
 class UNet3D(nn.Module):
@@ -148,11 +198,12 @@ class UNet3D(nn.Module):
             skip = subnet(h, f"enc{i}")
             skips.append(skip)
             w_down = getattr(self, f"down{i}_w").permute(2, 3, 4, 1, 0)
-            h = _bn_relu(downsample2x_conv(skip, w_down, compute_dtype=cdt),
-                         getattr(self, f"down{i}_bn"))
+            h = _resample_bn_relu(downsample2x_conv(skip, w_down, compute_dtype=cdt), None,
+                                  getattr(self, f"down{i}_bn"), cdt, self.training)
         h = subnet(h, "bottle")
         for i in range(cfg.depth, 0, -1):
             w_up = getattr(self, f"up{i}_w").permute(2, 3, 4, 0, 1)
-            h = _bn_relu(upsample2x_convt(h, w_up, compute_dtype=cdt), getattr(self, f"up{i}_bn"))
+            h = _resample_bn_relu(upsample2x_convt(h, w_up, compute_dtype=cdt), None,
+                                  getattr(self, f"up{i}_bn"), cdt, self.training)
             h = subnet(torch.cat([skips[i - 1], h.to(skips[i - 1].dtype)], dim=-1), f"dec{i}")
         return _conv(h, self.out_w.permute(2, 3, 4, 1, 0), cdt, self.training)

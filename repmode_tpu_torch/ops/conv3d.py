@@ -6,7 +6,7 @@ runs its plain PyTorch version, which defines the same arithmetic (inputs
 rounded to the compute dtype, sums in fp32, fp64 stays fp64):
 
   conv3d_same            K1, ``pallas_conv3d_same``: shared kernel, fused
-                         bias(+ReLU) epilogue (``csrc/conv3d_same.cu``;
+                         scale, bias (+ReLU) epilogue (``csrc/conv3d_same.cu``;
                          its instance, warpgroup MMA or mma.sync, and tiles
                          from ``conv3d_same_plan``);
   conv3d_same_persample  K2 and K3, ``pallas_conv3d_same_persample``: one
@@ -34,7 +34,8 @@ rounded to the compute dtype, sums in fp32, fp64 stays fp64):
                          ``conv3d_tapconcat_persample_plan``).
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``
-(and ``conv3d_same_persample.transpose_launches`` those of K3).
+(and ``conv3d_same_persample.transpose_launches`` those of K3;
+``conv3d_same.bn_epilogues`` its launches with a per-channel scale).
 
 ``conv3d_same_autograd`` is no kernel port: it is the XLA conv of the JAX
 package's differentiated expert sum as a plain PyTorch op (``F.conv3d``,
@@ -80,15 +81,16 @@ def conv3d_same_plain(
     w: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *,
+    scale: Optional[torch.Tensor] = None,
     relu: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version of ``conv3d_same``: the kernel's function in PyTorch ops.
 
-    x: (N,D,H,W,Ci), w: (kD,kH,kW,Ci,Co) with odd taps, bias: (Co,).
-    Returns act(conv(x, w) + bias) as (N,D,H,W,Co) in ``out_dtype``
-    (default: the accumulation dtype, fp32 or fp64).
+    x: (N,D,H,W,Ci), w: (kD,kH,kW,Ci,Co) with odd taps, scale and bias:
+    (Co,). Returns act(conv(x, w) * scale + bias) as (N,D,H,W,Co) in
+    ``out_dtype`` (default: the accumulation dtype, fp32 or fp64).
     """
     kd, kh, kw = w.shape[:3]
     xr = _round(x, compute_dtype)
@@ -98,6 +100,8 @@ def conv3d_same_plain(
         wr.permute(4, 3, 0, 1, 2),
         padding=((kd - 1) // 2, (kh - 1) // 2, (kw - 1) // 2),
     ).permute(0, 2, 3, 4, 1)
+    if scale is not None:
+        y = y * scale.to(y.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     if relu:
@@ -110,11 +114,14 @@ def conv3d_same(
     w: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *,
+    scale: Optional[torch.Tensor] = None,
     relu: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """'same' stride-1 3-D conv with an optional fused bias(+ReLU) epilogue.
+    """'same' stride-1 3-D conv with an optional fused epilogue: a
+    per-channel ``scale`` (fp32, before the bias: an eval-mode BN as an
+    affine), a bias, a ReLU.
 
     On a CUDA tensor: one launch of the bf16 tensor-core kernel on the
     current stream, the instance and tiles of ``conv3d_same_plan``
@@ -123,16 +130,16 @@ def conv3d_same(
     plan in its message. The kernel has no
     backward, as its TPU counterpart has none: with grad enabled and an input
     that requires grad it raises. On a CPU tensor: the plain version.
-    ``conv3d_same.launches`` counts kernel launches.
+    ``conv3d_same.launches`` counts kernel launches, ``.bn_epilogues`` those
+    of them that carry a scale.
     """
     if x.device.type == "cpu":
-        return conv3d_same_plain(
-            x, w, bias, relu=relu, compute_dtype=compute_dtype, out_dtype=out_dtype
-        )
+        return conv3d_same_plain(x, w, bias, scale=scale, relu=relu,
+                                 compute_dtype=compute_dtype, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, w, bias)
+        t is not None and t.requires_grad for t in (x, w, bias, scale)
     ):
         raise RuntimeError(
             "conv3d_same: the CUDA kernel has no backward, and an input requires grad; "
@@ -140,12 +147,15 @@ def conv3d_same(
             "per-sample merged route (train_impl 'auto'), or run this conv under "
             "torch.no_grad()"
         )
-    y = _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype)
+    y = _conv3d_same_cuda(x, w, bias, scale, relu, compute_dtype, out_dtype)
     conv3d_same.launches += 1
+    if scale is not None:
+        conv3d_same.bn_epilogues += 1
     return y
 
 
 conv3d_same.launches = 0
+conv3d_same.bn_epilogues = 0
 
 
 def conv3d_same_autograd(
@@ -181,7 +191,7 @@ def conv3d_same_autograd(
 conv3d_same_autograd.calls = 0
 
 
-def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tensor:
+def _conv3d_same_cuda(x, w, bias, scale, relu, compute_dtype, out_dtype) -> torch.Tensor:
     if x.dim() != 5 or w.dim() != 5:
         raise ValueError(f"conv3d_same: x {tuple(x.shape)} and w {tuple(w.shape)} must be 5-D")
     n, d, h, wl, ci = x.shape
@@ -198,17 +208,18 @@ def _conv3d_same_cuda(x, w, bias, relu, compute_dtype, out_dtype) -> torch.Tenso
     odt = out_dtype if out_dtype is not None else torch.float32
     if odt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3d_same: out_dtype must be float32 or bfloat16, got {odt}")
-    for name, t in (("w", w), ("bias", bias)):
+    for name, t in (("w", w), ("bias", bias), ("scale", scale)):
         if t is not None and t.device != x.device:
             raise ValueError(f"conv3d_same: {name} on {t.device}, x on {x.device}")
-    if bias is not None and tuple(bias.shape) != (co,):
-        raise ValueError(f"conv3d_same: bias {tuple(bias.shape)} must be ({co},)")
+    for name, t in (("bias", bias), ("scale", scale)):
+        if t is not None and tuple(t.shape) != (co,):
+            raise ValueError(f"conv3d_same: {name} {tuple(t.shape)} must be ({co},)")
 
     plan = conv3d_same_plan(tuple(x.shape), co, (kd, kh, kw), odt, num_sms=_num_sms(x.device))
-    return _k1_launch(x, w, bias, relu, odt, plan)
+    return _k1_launch(x, w, bias, scale, relu, odt, plan)
 
 
-def _k1_launch(x, w, bias, relu, odt, plan) -> torch.Tensor:
+def _k1_launch(x, w, bias, scale, relu, odt, plan) -> torch.Tensor:
     """Launch K1 as ``plan`` says (its instance, bm, mt, bn, kc, stages,
     ci_pad, co_pad) on checked operands."""
     n, d, h, wl = x.shape[:4]
@@ -216,15 +227,13 @@ def _k1_launch(x, w, bias, relu, odt, plan) -> torch.Tensor:
     kd, kh, kw, ci, co = w.shape
     xb = _aligned(xb)
     wp = _k1_weights(w, plan)
-    bp = None
-    if bias is not None:
-        bp = torch.zeros((plan["co_pad"],), dtype=torch.float32, device=x.device)
-        bp[:co] = bias
+    bp, sp = (None if t is None else _epilogue_vector(t, plan["co_pad"]) for t in (bias, scale))
     y = torch.empty((n, d, h, wl, co), dtype=odt, device=x.device)
 
     lib = build.load("conv3d_same")
     err = lib.conv3d_same_bf16(
-        xb.data_ptr(), wp.data_ptr(), None if bp is None else bp.data_ptr(), y.data_ptr(),
+        xb.data_ptr(), wp.data_ptr(), None if bp is None else bp.data_ptr(),
+        None if sp is None else sp.data_ptr(), y.data_ptr(),
         n, d, h, wl, ci, co, kd, kh, kw, plan["ci_pad"], plan["co_pad"],
         int(plan["instance"] == "wgmma"), plan["bm"], plan["mt"], plan["bn"], plan["kc"],
         plan["stages"], int(relu), int(odt == torch.bfloat16),
@@ -235,6 +244,13 @@ def _k1_launch(x, w, bias, relu, odt, plan) -> torch.Tensor:
         raise RuntimeError(f"conv3d_same kernel launch failed ({msg}) for x {tuple(x.shape)}, "
                            f"w {tuple(w.shape)}, plan {plan}")
     return y
+
+
+def _epilogue_vector(t: torch.Tensor, co_pad: int) -> torch.Tensor:
+    """A per-channel fp32 vector of K1's epilogue, zero-padded to co_pad."""
+    out = torch.zeros((co_pad,), dtype=torch.float32, device=t.device)
+    out[:t.shape[0]] = t
+    return out
 
 
 # K1's shared memory: a block may take 227 KB; two blocks an SM fit where

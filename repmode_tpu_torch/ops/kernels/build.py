@@ -139,7 +139,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "conv3d_same":
         lib.conv3d_same_plan.argtypes = [i32] * 18 + [ctypes.POINTER(i32)]
         lib.conv3d_same_plan.restype = i32
-        lib.conv3d_same_bf16.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 19 + [ptr]
+        lib.conv3d_same_bf16.argtypes = [ptr] * 5 + [i32] * 19 + [ptr]
         lib.conv3d_same_bf16.restype = i32
     elif name == "conv3d_persample":
         lib.conv3d_persample_plan.argtypes = [i32] * 18 + [ctypes.POINTER(i32)]

@@ -171,7 +171,7 @@ def test_wide_instance_matches_plain(cuda, kc, bn, wgs, mt, geometry):
     taps = (5, 5, 3)
     plan = forced_plan(shape, co, taps, wgs, mt, kc, bn, 3 + (kc + bn + wgs) % 2)
     x, wk, b = k1_operands(shape, co, taps, cuda, seed=kc + bn + wgs + mt)
-    y = conv3d_mod._k1_launch(x, wk, b, True, torch.bfloat16, plan)
+    y = conv3d_mod._k1_launch(x, wk, b, None, True, torch.bfloat16, plan)
     torch.cuda.synchronize()
     ref = plain_fp64(x, wk, b, True)
     assert y.shape == ref.shape and y.dtype == torch.bfloat16
@@ -185,8 +185,8 @@ def test_wide_instance_is_deterministic(cuda, kc, bn, mt, w):
     shape, co, taps = (2, 4, 9, w, 2 * kc), 2 * bn, (5, 5, 5)
     plan = forced_plan(shape, co, taps, 2, mt, kc, bn, 3)
     x, wk, b = k1_operands(shape, co, taps, cuda, seed=kc)
-    y1 = conv3d_mod._k1_launch(x, wk, b, False, torch.float32, plan)
-    y2 = conv3d_mod._k1_launch(x, wk, b, False, torch.float32, plan)
+    y1 = conv3d_mod._k1_launch(x, wk, b, None, False, torch.float32, plan)
+    y2 = conv3d_mod._k1_launch(x, wk, b, None, False, torch.float32, plan)
     assert torch.equal(y1, y2)
     assert torch.equal(conv3d_same(x, wk, b, compute_dtype=torch.bfloat16),
                        conv3d_same(x, wk, b, compute_dtype=torch.bfloat16))
@@ -244,6 +244,31 @@ def test_fnet3d_serving_shapes_match_plain(cuda, shape, co):
     ref = plain_fp64(x, wk, b, False)
     assert y.shape == ref.shape and y.dtype == torch.float32
     assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,co", FNET3D_SHAPES, ids=[f"{s[1:]}->{co}" for s, co in FNET3D_SHAPES])
+def test_fnet3d_serving_shapes_with_bn_scale_match_plain(cuda, shape, co, out_dtype):
+    """K1 with an eval BN's per-channel scale before the bias, and the ReLU,
+    in its epilogue (``models/unet._conv_bn_relu``) at each 'same' conv of
+    fnet_nn_3d's eval forward, fp32 and bf16 out, against the fp64 plain
+    version; with a scale of ones, K1 with the bias alone, bit for bit."""
+    bf = torch.bfloat16
+    x, wk, b = k1_operands(shape, co, (3, 3, 3), cuda, seed=shape[-1] + co)
+    g = torch.Generator().manual_seed(shape[-1] * co)
+    scale = (torch.rand((co,), generator=g) * 2 - 0.5).to(cuda)  # BN's gamma may be negative
+    before = conv3d_same.bn_epilogues
+    y = conv3d_same(x, wk, b, scale=scale, relu=True, compute_dtype=bf, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv3d_same.bn_epilogues == before + 1
+    ref = conv3d_same_plain(x.to(bf).double(), wk.to(bf).double(), b.double(),
+                            scale=scale.double(), relu=True)
+    assert y.shape == ref.shape and y.dtype == out_dtype
+    assert within_tolerance(y, ref), (y.double() - ref).abs().max().item()
+    ones = conv3d_same(x, wk, b, scale=torch.ones_like(scale), relu=True, compute_dtype=bf,
+                       out_dtype=out_dtype)
+    assert torch.equal(ones, conv3d_same(x, wk, b, relu=True, compute_dtype=bf,
+                                         out_dtype=out_dtype))
 
 
 def test_kernel_rejects_fp32_compute(cuda):
